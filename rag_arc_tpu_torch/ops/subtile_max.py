@@ -1,0 +1,120 @@
+"""Sub-tile max producer of the two-level top-k.
+
+Counterpart of ``rag_arc_tpu/ops/two_level_stream.py::subtile_max_stream``
+and of the ``_subtile_max_kernel_ip`` producer inside
+``rag_arc_tpu/ops/two_level.py::two_level_topk``. On the card it runs the
+hand-written CUDA kernel ``csrc/subtile_max.cu``; on the CPU it runs
+:func:`subtile_max_plain`, the same function in plain PyTorch.
+
+Layout: the result is (B, N/g) — the transpose of the TPU kernels'
+(N/g, B). The select stage reads each query's sub-tile maxima as one
+contiguous row; the TPU layout existed to keep B on the 128-wide lane
+axis.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from rag_arc_tpu_torch.ops._build import Built, build
+
+NEG = -3.0e38  # sentinel below any real score (avoids inf - inf)
+
+SUPPORTED_G = (16, 32, 64, 128)
+
+# kernel launches since the count was last set to 0; only the wrapper's
+# CUDA branch adds to it
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def subtile_max_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor, g: int
+) -> torch.Tensor:
+    """Plain PyTorch version: (B, N/g) f32 maxima of the f32-accumulated
+    scores over each g-row sub-tile, dead rows scoring NEG."""
+    n = corpus.shape[0]
+    scores = queries.float() @ corpus.float().T
+    scores = torch.where(valid[None, :].bool(), scores, NEG)
+    return scores.reshape(queries.shape[0], n // g, g).amax(dim=2)
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> Built:
+    """Build (once) and bind the CUDA kernel library."""
+    built = build("subtile_max")
+    fn = built.lib.subtile_max_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _check(queries, corpus, valid, g) -> None:
+    if queries.ndim != 2 or corpus.ndim != 2 or queries.shape[1] != corpus.shape[1]:
+        raise ValueError(
+            f"expected queries (B, d) and corpus (N, d), got "
+            f"{tuple(queries.shape)} and {tuple(corpus.shape)}"
+        )
+    n = corpus.shape[0]
+    if valid.shape != (n,):
+        raise ValueError(f"valid must be ({n},), got {tuple(valid.shape)}")
+    if g not in SUPPORTED_G:
+        raise ValueError(f"g must be one of {SUPPORTED_G}, got {g}")
+    if n % g:
+        raise ValueError(f"corpus rows {n} not a multiple of g {g}")
+    if queries.dtype != corpus.dtype:
+        raise ValueError(
+            f"queries {queries.dtype} and corpus {corpus.dtype} differ"
+        )
+
+
+def subtile_max(
+    queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor, g: int = 16
+) -> torch.Tensor:
+    """(B, N/g) f32: ``out[b, t] = max over the rows r of sub-tile t of
+    (valid[r] ? queries[b]·corpus[r] : NEG)``.
+
+    ``queries`` are already normalized (cosine) and cast to the corpus
+    dtype (f32 or bf16). CPU tensors take :func:`subtile_max_plain`; CUDA
+    tensors launch the kernel on the current stream or raise."""
+    global launches
+    _check(queries, corpus, valid, g)
+    if corpus.device.type == "cpu":
+        return subtile_max_plain(queries, corpus, valid, g)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"no subtile_max kernel for device {corpus.device}")
+    if queries.device != corpus.device or valid.device != corpus.device:
+        raise ValueError("queries, corpus and valid must share one device")
+    if corpus.dtype not in _DTYPE_CODE:
+        raise ValueError(f"subtile_max kernel takes f32 or bf16, not {corpus.dtype}")
+    if valid.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"valid must be bool or uint8, not {valid.dtype}")
+    if not (queries.is_contiguous() and corpus.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("subtile_max kernel needs contiguous tensors")
+    b, d = queries.shape
+    n = corpus.shape[0]
+    if n >= 2**31 or b * d >= 2**31:
+        raise ValueError("subtile_max kernel indexes rows with 32-bit ints")
+    out = torch.empty((b, n // g), dtype=torch.float32, device=corpus.device)
+    if b == 0 or n == 0:
+        return out
+    fn = load().lib.subtile_max_launch
+    with torch.cuda.device(corpus.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            queries.data_ptr(), corpus.data_ptr(),
+            valid.view(torch.uint8).data_ptr(), out.data_ptr(),
+            b, n, d, g, _DTYPE_CODE[corpus.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"subtile_max kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
