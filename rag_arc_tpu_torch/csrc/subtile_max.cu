@@ -8,12 +8,18 @@
 // with the dot product accumulated in f32. out is (B, N/g) f32: the
 // select stage reads one query's sub-tile maxima as a contiguous row.
 //
-// Replaces two TPU kernels of the JAX package:
+// l2 mode (qsq and sqnorm given): each row scores
+//   -(qsq[b] - 2 * q[b].x[r] + sqnorm[r])
+// before the mask and the max, with qsq the f32 squared norms of the
+// queries as passed and sqnorm the corpus's f32 squared norms.
+//
+// Replaces three TPU kernels of the JAX package:
 //   rag_arc_tpu/ops/two_level_stream.py::_stream_kernel (maskless stream)
 //   rag_arc_tpu/ops/two_level.py::_subtile_max_kernel_ip (masked grid)
-// One masked kernel serves both: the mask costs N bytes against the
+//   rag_arc_tpu/ops/two_level.py::_subtile_max_kernel (l2, masked grid)
+// One masked kernel serves all three: the mask costs N bytes against the
 // corpus's 2*N*d, and it makes the result exact without the TPU path's
-// positive-kth certificate.
+// positive-kth certificate. The l2 epilogue reads 4 more bytes per row.
 //
 // What bounds it on an H100: 2*B*N*d FLOPs against N*d*2 bytes of corpus
 // (bf16), i.e. B operations per byte. The card needs ~295 operations per
@@ -78,10 +84,19 @@ __device__ __forceinline__ bool rows_16b_aligned(const __nv_bfloat16* p,
 constexpr int QF = 8;
 constexpr int QB = FRAG * QF;
 
+// The l2 score of a row from its dot product (L2) or the dot itself.
+template <bool L2>
+__device__ __forceinline__ float row_score(float dot, float qsq, float sqn) {
+  return L2 ? -((qsq - 2.0f * dot) + sqn) : dot;
+}
+
+template <bool L2>
 __global__ void __launch_bounds__(THREADS)
 subtile_max_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ x,
                         const uint8_t* __restrict__ valid,
+                        const float* __restrict__ qsq,
+                        const float* __restrict__ sqnorm,
                         float* __restrict__ out, int B, int N, int d, int g) {
   constexpr int WARPS = THREADS / 32;
   __shared__ __align__(32) __nv_bfloat16 xs[ROWS * LDS];
@@ -143,10 +158,15 @@ subtile_max_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wmma::store_matrix_sync(st, acc[j], FRAG, wmma::mem_row_major);
     __syncwarp();
     if (lane < FRAG) {
+      const int bq = b0 + j * FRAG + lane;
+      const float q2 = (L2 && bq < B) ? qsq[bq] : 0.0f;
       float m = NEG;
       for (int r = 0; r < FRAG; ++r) {
         const long row = wrow + r;
-        if (row < N && valid[row]) m = fmaxf(m, st[r * FRAG + lane]);
+        if (row < N && valid[row]) {
+          const float sq = L2 ? sqnorm[row] : 0.0f;
+          m = fmaxf(m, row_score<L2>(st[r * FRAG + lane], q2, sq));
+        }
       }
       maxes[j * FRAG + lane][warp] = m;
     }
@@ -177,9 +197,12 @@ constexpr int FQB = 32;  // queries per block
 constexpr int FKT = 32;  // d-slice per step
 
 // 256 threads, each owning 4 rows x 4 queries of the 128 x 32 block.
+template <bool L2>
 __global__ void __launch_bounds__(THREADS)
 subtile_max_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
                        const uint8_t* __restrict__ valid,
+                       const float* __restrict__ qsq,
+                       const float* __restrict__ sqnorm,
                        float* __restrict__ out, int B, int N, int d, int g) {
   __shared__ float xs[FKT][ROWS + 4];  // k-major: rows contiguous
   __shared__ float qs[FKT][FQB + 4];
@@ -240,42 +263,57 @@ subtile_max_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
     const int w = i % n_out;
     const long t = t0 + w;
     if (b0 + bq >= B || t >= n_sub) continue;
+    const float q2 = L2 ? qsq[b0 + bq] : 0.0f;
     float m = NEG;
     for (int r = 0; r < g; ++r) {
       const long row = r0 + (long)w * g + r;
-      if (valid[row]) m = fmaxf(m, ss[w * g + r][bq]);
+      if (valid[row]) {
+        const float sq = L2 ? sqnorm[row] : 0.0f;
+        m = fmaxf(m, row_score<L2>(ss[w * g + r][bq], q2, sq));
+      }
     }
     out[(long)(b0 + bq) * n_sub + t] = m;
   }
 }
 
-}  // namespace
-
-// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. The
-// caller guarantees contiguous device buffers, N % g == 0 and g in
-// {16, 32, 64, 128}. Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() (0 on success).
-extern "C" int subtile_max_launch(const void* q, const void* x,
-                                  const void* valid, void* out, int B, int N,
-                                  int d, int g, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool L2>
+int launch(const void* q, const void* x, const uint8_t* v, const float* qsq,
+           const float* sqn, float* o, int B, int N, int d, int g, int dtype,
+           cudaStream_t s) {
   const long row_blocks = ((long)N + ROWS - 1) / ROWS;
   if (dtype == 1) {
-    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    const uint8_t* v = static_cast<const uint8_t*>(valid);
-    float* o = static_cast<float*>(out);
     const long blocks = row_blocks * ((B + QB - 1) / QB);
-    subtile_max_bf16_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-        qb, xb, v, o, B, N, d, g);
+    subtile_max_bf16_kernel<L2><<<(unsigned)blocks, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(x), v, qsq, sqn, o, B, N, d, g);
   } else if (dtype == 0) {
     const long blocks = row_blocks * ((B + FQB - 1) / FQB);
-    subtile_max_f32_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(x),
-        static_cast<const uint8_t*>(valid), static_cast<float*>(out), B, N, d,
-        g);
+    subtile_max_f32_kernel<L2><<<(unsigned)blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(x), v, qsq,
+        sqn, o, B, N, d, g);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. qsq (B,)
+// and sqnorm (N,) f32 select the l2 mode; both null for cosine/ip. The
+// caller guarantees contiguous device buffers, N % g == 0 and g in
+// {16, 32, 64, 128}. Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() (0 on success).
+extern "C" int subtile_max_launch(const void* q, const void* x,
+                                  const void* valid, const void* qsq,
+                                  const void* sqnorm, void* out, int B, int N,
+                                  int d, int g, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  float* o = static_cast<float*>(out);
+  const float* qs = static_cast<const float*>(qsq);
+  const float* sq = static_cast<const float*>(sqnorm);
+  if ((qs == nullptr) != (sq == nullptr)) return (int)cudaErrorInvalidValue;
+  if (qs != nullptr) return launch<true>(q, x, v, qs, sq, o, B, N, d, g, dtype, s);
+  return launch<false>(q, x, v, qs, sq, o, B, N, d, g, dtype, s);
 }

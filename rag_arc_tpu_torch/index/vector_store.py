@@ -219,7 +219,11 @@ class VectorStore(ABC):
 
 class TorchVectorStore(VectorStore):
     """Device-resident vector store over a DeviceFlatIndex (flat only:
-    IVF and HNSW are ROADMAP Queue 1 #13)."""
+    IVF and HNSW are ROADMAP Queue 1 #13).
+
+    ``dtype=torch.int8`` stores block-quantized int8 rows; ``refine``
+    (``"default"``, None, ``"int4"``, ``"int8"``), ``kf_mult`` and
+    ``rescore_i8`` pass through to the index (see ``index/flat.py``)."""
 
     def __init__(
         self,
@@ -231,6 +235,9 @@ class TorchVectorStore(VectorStore):
         compact_threshold: float = 0.5,
         *,
         device: torch.device | str,
+        refine: Optional[str] = "default",
+        kf_mult: int = 2,
+        rescore_i8: bool = True,
     ):
         self.embedding = embedding
         self.metric = metric
@@ -242,17 +249,34 @@ class TorchVectorStore(VectorStore):
         self.docstore = Docstore()
         self.index: Optional[DeviceFlatIndex] = None
         self.compact_threshold = compact_threshold
+        # int8 residual-refinement ladder; "default" keeps the index's
+        # default (int4, or int8 at odd dims), None disables the sidecar
+        self.refine = refine
+        # int8 candidate over-fetch multiplier (search-time knob)
+        self.kf_mult = int(kf_mult)
+        self.rescore_i8 = bool(rescore_i8)
         self._dim = dim or getattr(embedding, "dim", None)
         if self._dim is not None:
             self._create_index(self._dim)
 
     def _create_index(self, dim: int) -> None:
+        # the residual ladder exists only on int8 storage: an explicitly
+        # requested refine that cannot apply warns, as in the JAX package
+        if self.refine not in ("default", None) and self._dtype != torch.int8:
+            logger.warning(
+                "refine=%r has no effect on index_type='flat' dtype=%r — the "
+                "residual ladder needs dtype=int8",
+                self.refine, self._dtype,
+            )
         self.index = DeviceFlatIndex(
             dim=dim,
             metric=self.metric,
             capacity=self._init_capacity,
             dtype=self._dtype or torch.float32,
             device=self.device,
+            refine=self.refine,
+            kf_mult=self.kf_mult,
+            rescore_i8=self.rescore_i8,
         )
         self._dim = dim
 

@@ -32,7 +32,9 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(norm, min=eps)
 
 
-def _dot_f32(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+def dot_f32(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """(B, d) × (N, d) → (B, N) f32 products; a non-f32 corpus is widened
+    in row chunks, so it never exists twice in f32."""
     q32 = queries.float()
     if corpus.dtype == torch.float32:
         return q32 @ corpus.T
@@ -57,7 +59,7 @@ def pairwise_scores(
     queries = queries.to(corpus.dtype)
     if metric == "cosine":
         queries = l2_normalize(queries)
-    cross = _dot_f32(queries, corpus)
+    cross = dot_f32(queries, corpus)
     if metric in ("cosine", "ip"):
         return cross
     if corpus_sqnorm is None:

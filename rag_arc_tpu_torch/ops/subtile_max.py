@@ -6,6 +6,11 @@ and of the ``_subtile_max_kernel_ip`` producer inside
 hand-written CUDA kernel ``csrc/subtile_max.cu``; on the CPU it runs
 :func:`subtile_max_plain`, the same function in plain PyTorch.
 
+With ``sqnorm`` given it runs the l2 mode, the counterpart of
+``rag_arc_tpu/ops/two_level.py::_subtile_max_kernel`` (the l2 producer
+of ``two_level_topk(metric="l2")``): each row scores
+``-(‖q‖² - 2 q·x + ‖x‖²)`` before the mask and the sub-tile max.
+
 Layout: the result is (B, N/g) — the transpose of the TPU kernels'
 (N/g, B). The select stage reads each query's sub-tile maxima as one
 contiguous row; the TPU layout existed to keep B on the 128-wide lane
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -25,20 +31,36 @@ NEG = -3.0e38  # sentinel below any real score (avoids inf - inf)
 
 SUPPORTED_G = (16, 32, 64, 128)
 
-# kernel launches since the count was last set to 0; only the wrapper's
-# CUDA branch adds to it
+# kernel launches since the counts were last set to 0, cosine/ip and l2
+# mode apart; only the wrapper's CUDA branch adds to them
 launches = 0
+launches_l2 = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def query_sqnorm(queries: torch.Tensor) -> torch.Tensor:
+    """(B,) f32 ‖q‖² of the queries as the kernel sees them (cast to the
+    corpus dtype, widened to f32)."""
+    q32 = queries.float()
+    return torch.sum(q32 * q32, dim=1)
+
+
 def subtile_max_plain(
-    queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor, g: int
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    valid: torch.Tensor,
+    g: int,
+    sqnorm: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: (B, N/g) f32 maxima of the f32-accumulated
-    scores over each g-row sub-tile, dead rows scoring NEG."""
+    scores over each g-row sub-tile, dead rows scoring NEG; with
+    ``sqnorm`` the scores are the l2 ``-(‖q‖² - 2 q·x + ‖x‖²)``."""
     n = corpus.shape[0]
     scores = queries.float() @ corpus.float().T
+    if sqnorm is not None:
+        q_sq = query_sqnorm(queries)[:, None]
+        scores = -(q_sq - 2.0 * scores + sqnorm[None, :])
     scores = torch.where(valid[None, :].bool(), scores, NEG)
     return scores.reshape(queries.shape[0], n // g, g).amax(dim=2)
 
@@ -50,6 +72,7 @@ def load() -> Built:
     fn = built.lib.subtile_max_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -57,7 +80,7 @@ def load() -> Built:
     return built
 
 
-def _check(queries, corpus, valid, g) -> None:
+def _check(queries, corpus, valid, g, sqnorm) -> None:
     if queries.ndim != 2 or corpus.ndim != 2 or queries.shape[1] != corpus.shape[1]:
         raise ValueError(
             f"expected queries (B, d) and corpus (N, d), got "
@@ -74,21 +97,29 @@ def _check(queries, corpus, valid, g) -> None:
         raise ValueError(
             f"queries {queries.dtype} and corpus {corpus.dtype} differ"
         )
+    if sqnorm is not None and (sqnorm.shape != (n,) or sqnorm.dtype != torch.float32):
+        raise ValueError(f"sqnorm must be ({n},) float32")
 
 
 def subtile_max(
-    queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor, g: int = 16
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    valid: torch.Tensor,
+    g: int = 16,
+    sqnorm: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, N/g) f32: ``out[b, t] = max over the rows r of sub-tile t of
-    (valid[r] ? queries[b]·corpus[r] : NEG)``.
+    (valid[r] ? score(b, r) : NEG)`` with ``score = queries[b]·corpus[r]``,
+    or, given the corpus's f32 ``sqnorm`` (l2 mode),
+    ``-(‖queries[b]‖² - 2 queries[b]·corpus[r] + sqnorm[r])``.
 
     ``queries`` are already normalized (cosine) and cast to the corpus
     dtype (f32 or bf16). CPU tensors take :func:`subtile_max_plain`; CUDA
     tensors launch the kernel on the current stream or raise."""
-    global launches
-    _check(queries, corpus, valid, g)
+    global launches, launches_l2
+    _check(queries, corpus, valid, g, sqnorm)
     if corpus.device.type == "cpu":
-        return subtile_max_plain(queries, corpus, valid, g)
+        return subtile_max_plain(queries, corpus, valid, g, sqnorm)
     if corpus.device.type != "cuda":
         raise ValueError(f"no subtile_max kernel for device {corpus.device}")
     if queries.device != corpus.device or valid.device != corpus.device:
@@ -99,6 +130,11 @@ def subtile_max(
         raise ValueError(f"valid must be bool or uint8, not {valid.dtype}")
     if not (queries.is_contiguous() and corpus.is_contiguous() and valid.is_contiguous()):
         raise ValueError("subtile_max kernel needs contiguous tensors")
+    q_sq = None
+    if sqnorm is not None:
+        if sqnorm.device != corpus.device or not sqnorm.is_contiguous():
+            raise ValueError("sqnorm must be contiguous on the corpus's device")
+        q_sq = query_sqnorm(queries)
     b, d = queries.shape
     n = corpus.shape[0]
     if n >= 2**31 or b * d >= 2**31:
@@ -111,10 +147,15 @@ def subtile_max(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             queries.data_ptr(), corpus.data_ptr(),
-            valid.view(torch.uint8).data_ptr(), out.data_ptr(),
-            b, n, d, g, _DTYPE_CODE[corpus.dtype], stream,
+            valid.view(torch.uint8).data_ptr(),
+            None if q_sq is None else q_sq.data_ptr(),
+            None if sqnorm is None else sqnorm.data_ptr(),
+            out.data_ptr(), b, n, d, g, _DTYPE_CODE[corpus.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"subtile_max kernel launch failed: CUDA error {err}")
-    launches += 1
+    if sqnorm is None:
+        launches += 1
+    else:
+        launches_l2 += 1
     return out

@@ -1,6 +1,7 @@
 """Parity of the port's ops with the JAX package on the CPU: the sub-tile
-max producer's plain version against both TPU producers (Pallas interpret
-mode), the select/rescore stages, and the direct/chunked top-k.
+max producer's plain version against both TPU producers and the l2 grid
+kernel (Pallas interpret mode), the select/rescore stages, and the
+direct/chunked top-k.
 
 Inputs are numpy arrays made from a seed and handed to both packages."""
 
@@ -199,9 +200,71 @@ def test_two_level_topk_matches_jax(metric):
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
 
 
-def test_two_level_l2_not_ported():
+def _jax_l2_submax(q, x, valid, sqnorm, g, tile_n=1024):
+    """two_level_topk's l2 pass 1 (_subtile_max_kernel) on its own, as
+    two_level_topk launches it, in interpret mode → (N/g, B)."""
+    n, d = x.shape
+    b = q.shape[0]
+    spec = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
+    col = spec((tile_n, 1), lambda i, j: (i, 0))
+    return pl.pallas_call(
+        functools.partial(jtl._subtile_max_kernel, g=g, metric="l2"),
+        grid=(n // tile_n, 1),
+        in_specs=[spec((b, d), lambda i, j: (j, 0)), spec((tile_n, d), lambda i, j: (i, 0)),
+                  col, col],
+        out_specs=spec((tile_n // g, b), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((n // g, b), jnp.float32),
+        interpret=True,
+    )(q, x, valid.astype(jnp.int8).reshape(n, 1), sqnorm.reshape(n, 1))
+
+
+def _l2_data(seed):
+    q, x, valid = _data(seed)
+    rng = np.random.default_rng(seed + 100)
+    x = x * rng.uniform(0.5, 2.0, (len(x), 1)).astype(np.float32)  # not unit rows
+    q = 1.5 * q
+    return q, x, valid, (x * x).sum(1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("g", [16, 32])
+def test_l2_producer_matches_tpu_kernel(dtype, g):
+    jdt, tdt = DTYPES[dtype]
+    q, x, valid, sq = _l2_data(10)
+    tq = torch.from_numpy(q).to(tdt)
+    got = sm.subtile_max(
+        tq, torch.from_numpy(x).to(tdt), torch.from_numpy(valid), g,
+        sqnorm=torch.from_numpy(sq),
+    ).numpy()
+    want = np.asarray(_jax_l2_submax(
+        jnp.asarray(q, jdt), jnp.asarray(x, jdt), jnp.asarray(valid), jnp.asarray(sq), g))
+    np.testing.assert_allclose(got, want.T, rtol=0, atol=1e-5)
+    assert (got[:, 2048 // g] == np.float32(sm.NEG)).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_two_level_l2_matches_jax(dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, x, valid, sq = _l2_data(11)
+    x[100:104] = x[7]  # exact duplicates: the tie order is checked
+    q[0] = x[7]
+    sq = (x * x).sum(1)
+    js, jp = jtl.two_level_topk(
+        jnp.asarray(q), jnp.asarray(x, jdt), jnp.asarray(valid), jnp.asarray(sq),
+        k=10, g=16, tile_n=1024, metric="l2", interpret=True,
+    )
+    ts, tp = ttl.two_level_topk(
+        torch.from_numpy(q), torch.from_numpy(x).to(tdt), torch.from_numpy(valid),
+        10, g=16, metric="l2", sqnorm=torch.from_numpy(sq),
+    )
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+    assert tp[0, :5].tolist() == [7, 100, 101, 102, 103]
+
+
+def test_two_level_l2_needs_sqnorm():
     q, x, valid = _data(7, n=1024, dead=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sqnorm"):
         ttl.two_level_topk(
             torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(valid),
             5, metric="l2",
