@@ -6,7 +6,7 @@
 Phases, each printing its own lines and times:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compile both CUDA kernels from ``rag_arc_tpu_torch/csrc`` for
+  2. build: compile the four CUDA sources of ``rag_arc_tpu_torch/csrc`` for
      sm_90a, one ``nvcc`` each, in parallel (nvcc's register / shared-memory
      report is printed);
   3. kernels against their plain PyTorch versions on the card (N = 262,144,
@@ -16,6 +16,12 @@ Phases, each printing its own lines and times:
      - its l2 mode: bf16 B in {7, 512}, f32 B = 64;
      - ``subtile_max_i8``: block scales B in {1, 7, 128, 512}, per-row
        scales B = 64, exactly equal; at N = 2M both scale modes;
+     - ``rope_prep`` at the reranker shape (B = 64, L = 512, nh/nkv 16/8,
+       D = 128, bf16, left-padded positions, norm folded in), ragged,
+       nh = nkv, D = 64 and f32 cases; timed in turns at the reranker shape;
+     - ``flash_attention`` at B = 64, L = 512, H = 16, D = 128 bf16 with
+       random left-pad lengths, every row compared (pads included), and
+       L in {64, 200}, D = 64, f32; timed in turns at the reranker shape;
   4. index: a 2,000,000 x 768 corpus, its queries and their f32 exact
      top-10 oracle, shared by three indexes, each searched in batches of
      512 queries (k = 10) with ids checked against the plain producer's:
@@ -33,7 +39,19 @@ Phases, each printing its own lines and times:
        single queries through ``as_retriever().invoke``;
      - int8 with the first 16,384 of them; one batch of 512 verbatim texts
        and 4 single queries; then the store saved as a snapshot and loaded
-       into a fresh store, with arrays and results compared bit for bit.
+       into a fresh store, with arrays and results compared bit for bit;
+  6. rerank model: ``Qwen3LM`` at Qwen3-0.6B widths (28 x 1024, 16/8 heads
+     of 128, vocab 151,936), bf16, seeded N(0, 0.02) weights; ``last_logits``
+     on B = 64 x L = 512 random ids timed (pairs/s, ms per 50-candidate
+     query, MFU against 989 TFLOP/s), one layer's stage times, the kernel
+     path held against the einsum path on the same weights, and an f32
+     check at full width and 2 layers;
+  7. retrieve -> rerank: the top 50 of the bf16 e2e store for 8 query texts
+     through ``CrossEncoderReranker.from_causal_lm(qwen3, ...)
+     .rerank_batch(k=10)``, checked (candidates, sorted, scores in [0, 1],
+     order against the einsum path) and counted (both kernels launch once
+     per layer); then one ``rerank_batch`` through the default
+     ``CrossEncoderReranker()`` (768 x 12 causal).
 
 Every check that fails ends the run with a non-zero exit. Without a CUDA
 card it exits non-zero at once. The second-to-last line is a JSON object
@@ -76,6 +94,34 @@ E2E_BATCHES = 4
 N_SINGLE = 8
 I8_SINGLE = 4
 TOL = 1e-4  # bf16 products are exact in f32: only the summation order differs
+# the reranker: Qwen3-0.6B widths at bench.py::bench_rerank's B and L
+RERANK_B = 64
+RERANK_L = 512
+RERANK_REPS = 5
+H100_BF16_PEAK = 989e12  # dense bf16 FLOP/s, NVIDIA's data sheet (SXM, 700 W)
+ROPE_CASES = [  # (B, L, nh, nkv, D, dtype)
+    (RERANK_B, RERANK_L, 16, 8, 128, "bf16"), (3, 77, 16, 8, 128, "bf16"),
+    (4, 128, 8, 8, 128, "bf16"), (4, 96, 8, 4, 64, "bf16"), (4, 100, 16, 8, 128, "f32"),
+]
+FLASH_CASES = [  # (B, H, L, D, dtype), random left-pad lengths
+    (RERANK_B, 16, RERANK_L, 128, "bf16"), (8, 16, 64, 128, "bf16"),
+    (8, 16, 200, 128, "bf16"), (4, 8, 300, 64, "bf16"), (2, 4, 160, 128, "f32"),
+    (2, 4, 96, 64, "f32"),
+]
+# (atol, rtol). rope_prep runs the plain version's f32 arithmetic up to FMA
+# contraction and rounds once: one bf16 ulp (2^-7 relative at most), f32
+# rounding noise. flash_attention rounds exp(s - running max) to bf16 for
+# P·V where the plain version rounds exp(s - final max): two bf16 ulps at
+# |out| < 4 plus 1%; at f32 only the summation order differs.
+ROPE_TOL = {"bf16": (1e-2, 8e-3), "f32": (1e-5, 1e-6)}
+FLASH_TOL = {"bf16": (3e-2, 1e-2), "f32": (1e-5, 1e-5)}
+# kernel path against the einsum path on the same weights: the two round
+# bf16 at different points (models/qwen3.py), 28 layers deep
+LOGIT_BOUND = 0.1
+P_BOUND = 0.05
+F32_B, F32_L, F32_BOUND = 4, 256, 1e-4  # f32, full width, 2 layers
+RERANK_QUERIES = 8
+RERANK_CANDIDATES = 50
 
 CARD = ""
 ROOT = Path(__file__).resolve().parent
@@ -112,9 +158,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def in_turns(kernel, plain, name: str, ops: float, unit: str, bytes_read: float) -> dict:
+def in_turns(kernel, plain, name: str, ops: float, unit: str, nbytes: float,
+             bytes_label: str = "of corpus") -> dict:
     """Time kernel and plain version in turns (plain, kernel, kernel,
-    plain) and report both, with the kernel's rate."""
+    plain) and report both, with the kernel's rates: ``ops`` per call in
+    ``unit`` (ops / 1e12 per second) and ``nbytes`` per call in GB/s."""
     p1 = cuda_ms(plain, 3)
     k1 = cuda_ms(kernel, 10)
     k2 = cuda_ms(kernel, 10)
@@ -122,8 +170,8 @@ def in_turns(kernel, plain, name: str, ops: float, unit: str, bytes_read: float)
     kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     report(f"{name}: kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms "
            f"(CUDA events; in turns plain, kernel, kernel, plain); kernel "
-           f"{ops / kernel_ms / 1e9:.1f} {unit}, {bytes_read / kernel_ms / 1e6:.1f} GB/s "
-           f"of corpus")
+           f"{ops / kernel_ms / 1e9:.1f} {unit}, {nbytes / kernel_ms / 1e6:.1f} GB/s "
+           f"{bytes_label}")
     return {"ms": kernel_ms, "plain_ms": plain_ms}
 
 
@@ -155,7 +203,7 @@ def phase_build(modules) -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         builds = list(pool.map(lambda m: m.load(), modules))
-    report(f"both kernels ready in {time.perf_counter() - t0:.2f} s")
+    report(f"{len(builds)} kernel libraries ready in {time.perf_counter() - t0:.2f} s")
     for built in builds:
         report(f"built {built.path.name} for sm_90a in {built.seconds:.2f} s "
                f"(0 = reused an earlier build)")
@@ -637,9 +685,7 @@ def phase_end_to_end(torch, sm, dev):
     report(f"kernel launches in the end-to-end run: {launches}")
     check(launches >= E2E_BATCHES, f"kernel launched {launches} times end to end")
     layer_times(torch, sm, store, emb, [texts[i] for i in picks[:BATCH]])
-    del store
-    torch.cuda.empty_cache()
-    return launches, emb, texts
+    return launches, emb, texts, store
 
 
 def phase_end_to_end_i8(torch, smi8, dev, emb, texts) -> int:
@@ -722,6 +768,341 @@ def phase_end_to_end_i8(torch, smi8, dev, emb, texts) -> int:
     return launches
 
 
+def rope_inputs(torch, gen, b, l, nh, nkv, d, dtype, dev):
+    """q/k/v as the column slices of one fused qkv projection output (the
+    model's layout), left-padded positions, the rope tables, norm scales."""
+    from rag_arc_tpu_torch.ops.rope_prep import rope_cos_sin
+
+    qkv = torch.randn(b, l, (nh + 2 * nkv) * d, generator=gen, device=dev).to(dtype)
+    q, k, v = qkv[..., : nh * d], qkv[..., nh * d : (nh + nkv) * d], qkv[..., (nh + nkv) * d :]
+    mask = left_pad_mask(torch, gen, b, l, dev)
+    pos = torch.clamp(torch.cumsum(mask.long(), 1) - 1, min=0)
+    cos, sin = rope_cos_sin(pos, 1e6, d)
+    qs = torch.rand(d, generator=gen, device=dev) + 0.5
+    ks = torch.rand(d, generator=gen, device=dev) + 0.5
+    return q, k, v, cos, sin, qs, ks
+
+
+def left_pad_mask(torch, gen, b, l, dev):
+    """(B, L) bool, row 0 unpadded, the rest with random left-pad lengths."""
+    live = torch.randint(1, l + 1, (b,), generator=gen, device=dev)
+    live[0] = l
+    return torch.arange(l, device=dev)[None, :] >= (l - live)[:, None]
+
+
+def phase_rope(torch, rp, dev) -> dict:
+    phase("kernel against its plain version: rope_prep")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    max_err = 0.0
+    for b, l, nh, nkv, d, dt_name in ROPE_CASES:
+        dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
+        q, k, v, cos, sin, qs, ks = rope_inputs(torch, gen, b, l, nh, nkv, d, dtype, dev)
+        got = rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d)
+        torch.cuda.synchronize()
+        want = rp.rope_prep_plain(q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d),
+                                  v.reshape(b, l, nkv, d), cos, sin, qs, ks)
+        atol, rtol = ROPE_TOL[dt_name]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        ok = all(bool(((g.float() - w.float()).abs() <= atol + rtol * w.float().abs()).all())
+                 for g, w in zip(got, want))
+        v_exact = bool(torch.equal(got[2], want[2]))
+        max_err = max(max_err, err)
+        report(f"{dt_name} B={b} L={l} nh/nkv={nh}/{nkv} D={d}, "
+               f"left-padded positions, norm folded: max|kernel - plain| = {err:.3e} "
+               f"(bound {atol:g} + {rtol:g}|plain|), V exact: {v_exact}")
+        check(all(g.shape == (b, nh, l, d) for g in got), "rope_prep output shape")
+        check(ok and v_exact, f"rope_prep disagrees with its plain version: {err}")
+    del q, k, v, got, want
+
+    b, l, nh, nkv, d = RERANK_B, RERANK_L, 16, 8, 128
+    q, k, v, cos, sin, qs, ks = rope_inputs(torch, gen, b, l, nh, nkv, d, torch.bfloat16, dev)
+    kernel = lambda: rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d)  # noqa: E731
+    plain = lambda: rp.rope_prep_plain(  # noqa: E731
+        q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d), v.reshape(b, l, nkv, d),
+        cos, sin, qs, ks)
+    # bytes: q, k, v and the f32 tables read once; three (B, NH, L, D) outputs
+    read = 2 * b * l * (nh + 2 * nkv) * d + 2 * 4 * b * l * d
+    moved = read + 3 * 2 * b * nh * l * d
+    timed = in_turns(kernel, plain, f"rope_prep bf16 B={b} L={l} nh/nkv={nh}/{nkv} D={d}",
+                     moved, "TB/s moved (reads + writes)", read, "read")
+    del q, k, v, cos, sin
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **timed}
+
+
+def attn_inputs(torch, gen, b, h, l, d, dtype, dev):
+    q, k, v = (torch.randn(b, h, l, d, generator=gen, device=dev).to(dtype) for _ in range(3))
+    seg = left_pad_mask(torch, gen, b, l, dev).to(torch.int32)
+    return q, k, v, seg
+
+
+def phase_flash(torch, fa, dev) -> dict:
+    phase("kernel against its plain version: flash_attention (causal, segment ids)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    max_err = 0.0
+    for b, h, l, d, dt_name in FLASH_CASES:
+        dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
+        q, k, v, seg = attn_inputs(torch, gen, b, h, l, d, dtype, dev)
+        got = fa.flash_attention(q, k, v, seg)
+        torch.cuda.synchronize()
+        want = fa.attention_plain(q, k, v, seg, causal=True, sm_scale=d ** -0.5)
+        atol, rtol = FLASH_TOL[dt_name]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        finite = bool(torch.isfinite(got).all())
+        max_err = max(max_err, err)
+        report(f"{dt_name} B={b} H={h} L={l} D={d}, left-padded, "
+               f"every row: max|kernel - plain| = {err:.3e} (bound {atol:g} + "
+               f"{rtol:g}|plain|), finite: {finite}, pad rows "
+               f"{int((seg == 0).sum())}")
+        check(finite and ok, f"flash_attention disagrees with its plain version: {err}")
+        del got, want, diff
+
+    b, h, l, d = RERANK_B, 16, RERANK_L, 128
+    q, k, v, seg = attn_inputs(torch, gen, b, h, l, d, torch.bfloat16, dev)
+    kernel = lambda: fa.flash_attention(q, k, v, seg)  # noqa: E731
+    plain = lambda: fa.attention_plain(q, k, v, seg, causal=True, sm_scale=d ** -0.5)  # noqa: E731
+    flops = 4.0 * b * h * l * l * d / 2  # the causal half
+    timed = in_turns(kernel, plain, f"flash_attention bf16 B={b} H={h} L={l} D={d} causal",
+                     flops, "TFLOP/s", 4 * b * h * l * d * 2, "of Q, K, V, out")
+    del q, k, v, seg
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **timed}
+
+
+def rerank_flops_per_pair(cfg, length: int) -> float:
+    """Matmul FLOPs of one pair's forward, as bench.py:421-429 counts them
+    (qkvo + SwiGLU per layer, plus 4·L·NH·D attention per token)."""
+    h, hd, nh, nkv, inter = (cfg.hidden_size, cfg.head_dim, cfg.num_attention_heads,
+                             cfg.num_key_value_heads, cfg.intermediate_size)
+    per_layer = 2 * h * hd * (2 * nh + 2 * nkv) + 6 * h * inter
+    attn = 4 * length * nh * hd
+    return float(length * cfg.num_hidden_layers * (per_layer + attn))
+
+
+def p_yes(torch, logits, yes_id: int, no_id: int):
+    pair = torch.stack([logits[:, no_id], logits[:, yes_id]], dim=-1).float()
+    return torch.softmax(pair, dim=-1)[:, 1]
+
+
+def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
+    """Device time of each stage of layer 0 at the rerank shape."""
+    import math
+
+    from rag_arc_tpu_torch.models.qwen3 import _linear
+
+    cfg = model.cfg
+    layer, attn = model.layers[0], model.layers[0].self_attn
+    hd, nh, nkv, dt = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads, cfg.dtype
+    ctx = model._context(mask)
+    with torch.inference_mode():
+        x = model.embed_tokens(ids).to(dt)
+        h = layer.input_layernorm(x)
+        qkv = _linear(attn.qkv_proj, h, dt)
+        q, k, v = qkv[..., : nh * hd], qkv[..., nh * hd : (nh + nkv) * hd], qkv[..., (nh + nkv) * hd :]
+        qn, ks = attn.q_norm.weight.float(), attn.k_norm.weight.float()
+        qr, kr, vr = rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh, nkv=nkv, d=hd)
+        out = fa.flash_attention(qr, kr, vr, ctx.seg, sm_scale=1.0 / math.sqrt(hd))
+        flat = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], nh * hd)
+
+        def mlp():
+            gu = _linear(layer.gateup_proj, layer.post_attention_layernorm(x), dt)
+            gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
+            return _linear(layer.down_proj, torch.nn.functional.silu(gate) * up, dt)
+
+        stages = {
+            "input RMSNorm": lambda: layer.input_layernorm(x),
+            "qkv projection": lambda: _linear(attn.qkv_proj, h, dt),
+            "rope_prep": lambda: rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh,
+                                              nkv=nkv, d=hd),
+            "attention": lambda: fa.flash_attention(qr, kr, vr, ctx.seg,
+                                                    sm_scale=1.0 / math.sqrt(hd)),
+            "(B,H,L,D)->(B,L,H*D) copy": lambda: out.transpose(1, 2).reshape(flat.shape),
+            "o_proj": lambda: _linear(attn.o_proj, flat, dt),
+            "MLP (norm, gate|up, SiLU*up, down)": mlp,
+            "whole layer": lambda: layer(x, ctx),
+        }
+        times = {}
+        for name, fn in stages.items():
+            # a first call outside the window: first-use allocations stall
+            # the host, and CUDA events would count the device's idle gap
+            fn()
+            torch.cuda.synchronize()
+            times[name] = cuda_ms(fn, 10)
+    report(f"layer 0 of {cfg.num_hidden_layers}, B={ids.shape[0]} L={ids.shape[1]} bf16 "
+           f"(CUDA events, mean of 10): " + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
+
+
+def phase_rerank_model(torch, rp, fa, dev):
+    """Qwen3-0.6B widths, seeded N(0, 0.02) bf16 weights, last_logits at
+    B=64 x L=512 on the kernel path, timed and held against the einsum
+    path; then an f32 check at full width and 2 layers. Returns the model
+    and its einsum-path twin (the same weights)."""
+    import dataclasses
+
+    from rag_arc_tpu_torch.models.qwen3 import Qwen3Config, Qwen3LM, init_qwen3
+    from rag_arc_tpu_torch.rerank.cross_encoder import HashTokenizer
+
+    cfg = Qwen3Config(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    phase(f"rerank model: Qwen3 {cfg.num_hidden_layers}x{cfg.hidden_size}, heads "
+          f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}x{cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, bf16 (seeded N(0, 0.02) weights), last_logits at "
+          f"B={RERANK_B} L={RERANK_L}")
+    t0 = time.perf_counter()
+    model = init_qwen3(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    report(f"{n_params / 1e6:.1f}M parameters made on the card in "
+           f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ids = torch.randint(4, cfg.vocab_size, (RERANK_B, RERANK_L), generator=gen, device=dev)
+    full = torch.ones_like(ids, dtype=torch.bool)
+
+    with torch.inference_mode():
+        model.last_logits(ids, full)  # warm up
+        torch.cuda.synchronize()
+        Counter(rp).reset()
+        Counter(fa).reset()
+        fwd_ms = cuda_ms(lambda: model.last_logits(ids, full), RERANK_REPS)
+        launches = (rp.launches, fa.launches)
+    per_fwd = tuple(n // RERANK_REPS for n in launches)
+    pairs_s = RERANK_B / (fwd_ms / 1e3)
+    flops = rerank_flops_per_pair(cfg, RERANK_L)
+    mfu = pairs_s * flops / H100_BF16_PEAK
+    report(f"last_logits forward {fwd_ms:.3f} ms (CUDA events, mean of {RERANK_REPS}): "
+           f"{pairs_s:.1f} pairs/s, {1e3 * 50 / pairs_s:.2f} ms per 50-candidate query, "
+           f"MFU {100 * mfu:.2f}% of 989 TFLOP/s dense bf16 ({flops * RERANK_B / 1e12:.2f} "
+           f"TFLOP a batch, bench.py:421-429 count); launches per forward: rope_prep "
+           f"{per_fwd[0]}, flash_attention {per_fwd[1]}")
+    check(per_fwd == (cfg.num_hidden_layers,) * 2,
+          f"launches per forward {per_fwd}, want {cfg.num_hidden_layers} each")
+
+    mask = left_pad_mask(torch, gen, RERANK_B, RERANK_L, dev)
+    qwen3_layer_times(torch, model, rp, fa, ids, mask)
+
+    ref = Qwen3LM(dataclasses.replace(cfg, attn_impl="einsum"), device=dev)
+    ref.load_state_dict(model.state_dict())
+    ref.eval()
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    yes, no = tok.token_id("yes"), tok.token_id("no")
+    with torch.inference_mode():
+        got = model.last_logits(ids, mask).float()
+        ref_ms = cuda_ms(lambda: ref.last_logits(ids, mask), 1)
+        want = ref.last_logits(ids, mask).float()
+    d_logit = float((got - want).abs().max())
+    d_p = float((p_yes(torch, got, yes, no) - p_yes(torch, want, yes, no)).abs().max())
+    report(f"kernel path vs einsum path, same weights, left-padded batch "
+           f"({int((~mask).sum())} pad slots): max|Δ last logit| = {d_logit:.3e} (bound "
+           f"{LOGIT_BOUND}; |logit| up to {float(want.abs().max()):.3f}), max|ΔP(yes)| = "
+           f"{d_p:.3e} (bound {P_BOUND}); einsum forward {ref_ms:.1f} ms")
+    check(bool(torch.isfinite(got).all()), "non-finite logits on the kernel path")
+    check(d_logit <= LOGIT_BOUND and d_p <= P_BOUND, "kernel path strays from the einsum path")
+    del got, want
+
+    cfg32 = Qwen3Config(num_hidden_layers=2)
+    m32 = init_qwen3(cfg32, SEED + 1, dev)
+    r32 = Qwen3LM(dataclasses.replace(cfg32, attn_impl="einsum"), device=dev)
+    r32.load_state_dict(m32.state_dict())
+    ids32, mask32 = ids[:F32_B, :F32_L], left_pad_mask(torch, gen, F32_B, F32_L, dev)
+    with torch.inference_mode():
+        d32 = float((m32.last_logits(ids32, mask32) - r32.last_logits(ids32, mask32))
+                    .abs().max())
+    report(f"f32, {cfg32.num_hidden_layers} layers at full width, B={F32_B} L={F32_L} "
+           f"left-padded: max|Δ last logit| kernel vs einsum = {d32:.3e} (bound {F32_BOUND})")
+    check(d32 <= F32_BOUND, f"f32 kernel path strays from the einsum path: {d32}")
+    del m32, r32
+    torch.cuda.empty_cache()
+    return model, ref
+
+
+def rerank_order_inversions(got, ref) -> tuple[int, float]:
+    """Pairs of candidates that the two rankings order differently, and
+    the largest score gap (in the first ranking) among them."""
+    score_a = {d.id: d.metadata["rerank_score"] for d in got}
+    pos_b = {d.id: i for i, d in enumerate(ref)}
+    n, gap = 0, 0.0
+    for i, a in enumerate(got):
+        for c in got[i + 1 :]:
+            if pos_b[a.id] > pos_b[c.id]:
+                n += 1
+                gap = max(gap, score_a[a.id] - score_a[c.id])
+    return n, gap
+
+
+def phase_rerank_e2e(torch, rp, fa, dev, store, texts, model, ref) -> tuple[int, int]:
+    """``model`` on the kernel path, ``ref`` its einsum-path twin."""
+    from rag_arc_tpu_torch.index.vector_store import Document
+    from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker, HashTokenizer
+
+    phase(f"retrieve -> rerank: top {RERANK_CANDIDATES} of the e2e store for "
+          f"{RERANK_QUERIES} query texts, reranked to {K} by the Qwen3 cross-encoder")
+    picks = np.random.default_rng(SEED + 6).choice(len(texts), RERANK_QUERIES, replace=False)
+    queries = [texts[i] for i in picks]
+    hits = store.batch_similarity_search_with_score(queries, k=RERANK_CANDIDATES)
+    cands = [[d for d, _ in h] for h in hits]
+    check(all(len(c) == RERANK_CANDIDATES for c in cands), "retrieval came back short")
+    tok = HashTokenizer(vocab_size=model.cfg.vocab_size)
+    rr = CrossEncoderReranker.from_causal_lm(model, None, tok, device=dev)
+    rr.rerank_batch(queries[:1], cands[:1], k=K)  # warm up
+    torch.cuda.synchronize()
+
+    Counter(rp).reset()
+    Counter(fa).reset()
+    t0 = time.perf_counter()
+    out = rr.rerank_batch(queries, cands, k=K)
+    e2e_s = time.perf_counter() - t0
+    launches = (rp.launches, fa.launches)
+    n_pairs = RERANK_QUERIES * RERANK_CANDIDATES
+    bucket = rr._encode_bucketed(
+        [rr._render(q, d.content) for q, c in zip(queries, cands) for d in c])[0].shape[1]
+    report(f"rerank_batch of {n_pairs} pairs in {e2e_s * 1e3:.1f} ms (host clock, ends in "
+           f"the readback) = {n_pairs / e2e_s:.1f} pairs/s; kernel launches rope_prep "
+           f"{launches[0]}, flash_attention {launches[1]}")
+    check(min(launches) >= model.cfg.num_hidden_layers,
+          f"the rerank path launched the kernels {launches} times")
+    for q, c, res in zip(queries, cands, out):
+        scores = [d.metadata["rerank_score"] for d in res]
+        check(len(res) == K and all(isinstance(d, Document) for d in res),
+              "rerank did not return k Documents")
+        check({d.id for d in res} <= {d.id for d in c}, "a reranked result is not a candidate")
+        check(scores == sorted(scores, reverse=True), "results not sorted by rerank_score")
+        check(all(0.0 <= s <= 1.0 for s in scores), "a rerank score outside [0, 1]")
+
+    rr_ref = CrossEncoderReranker.from_causal_lm(ref, None, tok, device=dev)
+    full = rr.rerank_batch(queries, cands)
+    full_ref = rr_ref.rerank_batch(queries, cands)
+    n_inv, gap, d_p = 0, 0.0, 0.0
+    for a, b in zip(full, full_ref):
+        n, g = rerank_order_inversions(a, b)
+        n_inv, gap = n_inv + n, max(gap, g)
+        ref_score = {d.id: d.metadata["rerank_score"] for d in b}
+        d_p = max([d_p] + [abs(x.metadata["rerank_score"] - ref_score[x.id]) for x in a])
+    spread = max(a[0].metadata["rerank_score"] - a[-1].metadata["rerank_score"] for a in full)
+    report(f"full order vs the einsum path: {n_inv} inverted pairs, widest score gap among "
+           f"them {gap:.3e} (bound {2 * P_BOUND}), max|ΔP(yes)| {d_p:.3e} (bound {P_BOUND}); "
+           f"widest score spread in a candidate set {spread:.3e}; prompts in the "
+           f"{bucket}-token bucket")
+    check(d_p <= P_BOUND and gap <= 2 * P_BOUND, "rerank order differs beyond the bound")
+    del rr_ref, full, full_ref
+
+    default = CrossEncoderReranker(device=dev)
+    c = default.cfg
+    t0 = time.perf_counter()
+    out = default.rerank_batch(queries, cands, k=K)
+    default_s = time.perf_counter() - t0
+    ok = all(len(r) == K and all(0.0 <= d.metadata["rerank_score"] <= 1.0 for d in r) and
+             [d.metadata["rerank_score"] for d in r] ==
+             sorted((d.metadata["rerank_score"] for d in r), reverse=True) for r in out)
+    report(f"default CrossEncoderReranker() ({c.dim}x{c.depth} causal, vocab {c.vocab_size}, "
+           f"seeded weights): rerank_batch of {n_pairs} pairs in {default_s * 1e3:.1f} ms "
+           f"(host clock, first call); sorted, scores in [0, 1]: {ok}")
+    check(ok, "the default reranker's results are not sorted scores in [0, 1]")
+    del default
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -730,22 +1111,30 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from rag_arc_tpu_torch.ops import subtile_max as sm
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+    from rag_arc_tpu_torch.ops import rope_prep as rp
     from rag_arc_tpu_torch.ops import subtile_max_i8 as smi8
 
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     try:
         phase_environment(torch)
-        phase_build([sm, smi8])
+        phase_build([sm, smi8, rp, fa])
         kernel, kernel_l2 = phase_kernel(torch, sm, dev)
         kernel_i8 = phase_kernel_i8(torch, smi8, dev)
+        kernel_rope = phase_rope(torch, rp, dev)
+        kernel_flash = phase_flash(torch, fa, dev)
         data = make_index_data(torch, dev)
         phase_index(torch, sm, dev, data)
         l2_launches = phase_index_l2(torch, sm, dev, data)
         phase_index_i8(torch, smi8, dev, data)
         del data
-        e2e_launches, emb, texts = phase_end_to_end(torch, sm, dev)
+        e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, dev)
         i8_launches = phase_end_to_end_i8(torch, smi8, dev, emb, texts)
+        qwen3, qwen3_ref = phase_rerank_model(torch, rp, fa, dev)
+        rope_launches, flash_launches = phase_rerank_e2e(
+            torch, rp, fa, dev, store, texts, qwen3, qwen3_ref)
+        del store, qwen3, qwen3_ref
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -764,6 +1153,12 @@ def main() -> int:
          "also_replaces": ["rag_arc_tpu/ops/two_level_stream.py:140 (int8 mode)",
                            "rag_arc_tpu/ops/two_level.py:109"],
          "launches": i8_launches, **kernel_i8},
+        {"name": "rope_prep", "route": "cuda", "source": src + "rope_prep.cu",
+         "replaces": "rag_arc_tpu/ops/rope_prep.py:52",
+         "launches": rope_launches, **kernel_rope},
+        {"name": "flash_attention", "route": "cuda", "source": src + "flash_attention.cu",
+         "replaces": "rag_arc_tpu/models/qwen3.py:176-196 (library Pallas flash attention)",
+         "launches": flash_launches, **kernel_flash},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

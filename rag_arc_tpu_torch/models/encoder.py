@@ -1,7 +1,9 @@
-"""Transformer text encoder (counterpart of ``rag_arc_tpu/models/encoder.py``).
+"""Transformer text encoder and causal LM (counterpart of
+``rag_arc_tpu/models/encoder.py``).
 
-A pre-LN bidirectional trunk, masked mean pooling and L2 normalization —
-what a sentence-transformer computes. The arithmetic follows the Flax
+A pre-LN trunk shared by a masked-mean-pooled, L2-normalized encoder (what
+a sentence-transformer computes) and, with causal attention and an f32
+vocabulary head, the default cross-encoder scorer. The arithmetic follows the Flax
 modules so both packages produce the same vectors from the same weights:
 
 - parameters are stored in ``param_dtype`` (f32) and cast to the compute
@@ -9,11 +11,12 @@ modules so both packages produce the same vectors from the same weights:
 - LayerNorm computes in f32 with epsilon 1e-6 (Flax's default; torch's
   is 1e-5) and returns the compute dtype;
 - attention scores are f32, probabilities are cast to the compute dtype,
-  masked keys get a -1e9 additive bias;
+  masked keys (and, when ``causal``, keys after the query) get a -1e9
+  additive bias;
 - GELU is the tanh approximation (Flax's ``nn.gelu`` default);
 - positions come from ``cumsum(mask) - 1``, not ``arange``.
 
-The encoder has no hand-written kernel: it is plain PyTorch.
+Neither has a hand-written kernel: both are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ class TransformerConfig:
     max_len: int = 512
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    causal: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -121,6 +125,16 @@ class Trunk(nn.Module):
             x = block(x, attn_bias)
         return _layer_norm(self.ln_final, x, dt)
 
+    @staticmethod
+    def mask_bias(mask: torch.Tensor, causal: bool) -> torch.Tensor:
+        """Additive f32 bias from a (B, L) bool mask: -1e9 at masked keys
+        ((B, 1, 1, L)), and above the diagonal when causal ((B, 1, L, L))."""
+        keep = mask[:, None, None, :]
+        if causal:
+            l = mask.shape[1]
+            keep = keep & torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
+        return torch.where(keep, 0.0, MASK_BIAS)
+
 
 def l2_normalize_rows(pooled: torch.Tensor) -> torch.Tensor:
     """L2-normalize along the last axis (zero rows stay zero)."""
@@ -149,9 +163,32 @@ class TextEncoder(nn.Module):
         # positions from the mask: real tokens embed 0..n-1 whatever the
         # padding (cumsum - 1 equals arange on right-padded rows)
         positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
-        bias = torch.where(mask[:, None, None, :], 0.0, MASK_BIAS)
-        x = self.trunk(ids, positions, bias)
+        x = self.trunk(ids, positions, Trunk.mask_bias(mask, self.cfg.causal))
         return l2_normalize_rows(masked_mean_pool(x, mask))
+
+
+class CausalLM(nn.Module):
+    """Causal trunk + f32 vocabulary head (the cross-encoder's scorer):
+    ``(ids (B, L), mask (B, L), last_only) → (B, L, V)``, or ``(B, V)`` at
+    the last position when ``last_only`` (rows left-padded)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = dataclasses.replace(cfg, causal=True)
+        self.trunk = Trunk(self.cfg, device)
+        self.lm_head = nn.Linear(
+            cfg.dim, cfg.vocab_size, device=device, dtype=cfg.param_dtype
+        )
+
+    def forward(
+        self, ids: torch.Tensor, mask: torch.Tensor, last_only: bool = False
+    ) -> torch.Tensor:
+        mask = mask.bool()
+        positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
+        x = self.trunk(ids.long(), positions, Trunk.mask_bias(mask, causal=True))
+        if last_only:
+            x = x[:, -1, :]
+        return F.linear(x.float(), self.lm_head.weight.float(), self.lm_head.bias.float())
 
 
 class PackedTextEncoder(nn.Module):
@@ -209,7 +246,19 @@ def init_encoder(
     The numbers differ from the Flax init of the same seed; tests that
     compare the packages load one set of weights into both
     (``models/convert.py``)."""
-    model = TextEncoder(cfg, device=device)
+    return _init_flax_scales(TextEncoder(cfg, device=device), cfg, seed, device)
+
+
+@torch.no_grad()
+def init_causal_lm(
+    cfg: TransformerConfig, seed: int, device: torch.device | str
+) -> CausalLM:
+    """A CausalLM with seeded random weights at Flax's default scales (as
+    :func:`init_encoder`)."""
+    return _init_flax_scales(CausalLM(cfg, device=device), cfg, seed, device)
+
+
+def _init_flax_scales(model: nn.Module, cfg: TransformerConfig, seed: int, device):
     gen = torch.Generator(device=torch.device(device)).manual_seed(int(seed))
     for module in model.modules():
         if isinstance(module, nn.Linear):

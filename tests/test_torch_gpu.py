@@ -1,13 +1,18 @@
-"""Card-only tests of the port's CUDA kernels (bf16/f32 with its l2 mode,
-and int8): each kernel against its plain PyTorch version at small shapes
-(int8 bit for bit), the launch counts, and the wrappers' refusals. They skip where no CUDA card is present (the kernel has no CPU
-mode); on a machine with a card run
+"""Card-only tests of the port's CUDA kernels (sub-tile max bf16/f32 with
+its l2 mode, int8, rope_prep, flash attention): each kernel against its
+plain PyTorch version at small shapes (int8 bit for bit), offset views
+and ragged lengths, the launch counts, the wrappers' refusals, and a
+small Qwen3 forward through both attention kernels. They skip where no
+CUDA card is present (a CUDA kernel has no CPU mode); on a machine with a
+card run
 
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu -q
 
 (``--noconftest``: the suite's conftest imports JAX, which a card-only
 machine need not have; this file imports only torch and numpy).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -223,3 +228,224 @@ def test_i8_blocked_codes_on_card(cuda):
             torch.ones(2048, dtype=torch.bool, device=cuda), 16)
     torch.testing.assert_close(smi8.subtile_max_i8(*args), smi8.subtile_max_i8_plain(*args),
                                atol=0, rtol=0)
+
+
+# -- rope_prep --------------------------------------------------------------------
+
+
+def _rope_case(b, l, nh, nkv, d, dtype, device, norm=True, seed=0):
+    from rag_arc_tpu_torch.ops.rope_prep import rope_cos_sin
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, l, nh * d, generator=gen).to(device, dtype)
+    k = torch.randn(b, l, nkv * d, generator=gen).to(device, dtype)
+    v = torch.randn(b, l, nkv * d, generator=gen).to(device, dtype)
+    live = torch.randint(1, l + 1, (b,), generator=gen)
+    mask = torch.arange(l)[None, :] >= (l - live)[:, None]
+    pos = torch.clamp(torch.cumsum(mask.long(), 1) - 1, min=0).to(device)
+    cos, sin = rope_cos_sin(pos, 1e6, d)
+    qs = ks = None
+    if norm:
+        qs = (torch.rand(d, generator=gen) + 0.5).to(device)
+        ks = (torch.rand(d, generator=gen) + 0.5).to(device)
+    return q, k, v, cos, sin, qs, ks
+
+
+def _rope_check(got, q, k, v, cos, sin, qs, ks, nh, nkv, d):
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    b, l, _ = q.shape
+    want = rp.rope_prep_plain(q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d),
+                              v.reshape(b, l, nkv, d), cos, sin, qs, ks)
+    # bf16: one bf16 ulp (the f32 arithmetic is the same up to FMA
+    # contraction; only a rounding boundary can flip); f32: FMA contraction
+    atol, rtol = (1e-2, 8e-3) if q.dtype == torch.bfloat16 else (1e-5, 1e-6)
+    for g, w in zip(got, want):
+        assert g.shape == (b, nh, l, d) and g.dtype == q.dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=0)  # V: a copy
+
+
+@pytest.mark.parametrize("b,l,nh,nkv,d,dtype,norm", [
+    (4, 128, 16, 8, 128, torch.bfloat16, True),
+    (3, 77, 16, 8, 128, torch.bfloat16, True),     # ragged L
+    (2, 64, 8, 8, 128, torch.bfloat16, True),      # nh == nkv
+    (2, 64, 8, 2, 128, torch.bfloat16, False),     # no norm, group 4
+    (2, 50, 8, 4, 64, torch.bfloat16, True),       # D = 64
+    (2, 33, 8, 4, 128, torch.float32, True),
+    (2, 33, 4, 2, 64, torch.float32, False),
+])
+def test_rope_prep_kernel_matches_plain(cuda, b, l, nh, nkv, d, dtype, norm):
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    case = _rope_case(b, l, nh, nkv, d, dtype, cuda, norm)
+    before = rp.launches
+    got = rp.rope_prep(*case, nh=nh, nkv=nkv, d=d)
+    torch.cuda.synchronize()
+    assert rp.launches == before + 1
+    _rope_check(got, *case, nh, nkv, d)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_rope_prep_kernel_on_qkv_slices_and_offset_views(cuda, offset):
+    """Column slices of a fused qkv output (rows strided, no copy), and
+    views starting off a vector boundary."""
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    b, l, nh, nkv, d = 2, 40, 8, 4, 128
+    _, _, _, cos, sin, qs, ks = _rope_case(b, l, nh, nkv, d, torch.bfloat16, cuda)
+    width = (nh + 2 * nkv) * d
+    flat = torch.randn(b * l * width + offset, device=cuda).to(torch.bfloat16)
+    qkv = flat[offset:].view(b, l, width)
+    q, k, v = qkv[..., : nh * d], qkv[..., nh * d : (nh + nkv) * d], qkv[..., (nh + nkv) * d :]
+    got = rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d)
+    torch.cuda.synchronize()
+    _rope_check(got, q, k, v, cos, sin, qs, ks, nh, nkv, d)
+
+
+def test_rope_prep_wrapper_refuses(cuda):
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    q, k, v, cos, sin, qs, ks = _rope_case(2, 16, 4, 2, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rp.rope_prep(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, cos, sin,
+                     nh=4, nkv=2, d=128)
+    with pytest.raises(ValueError, match="head dim"):
+        q32, k32, cos32, sin32 = (torch.zeros(2, 16, n, device=cuda, dtype=t) for n, t in
+                                  ((4 * 32, torch.bfloat16), (2 * 32, torch.bfloat16),
+                                   (32, torch.float32), (32, torch.float32)))
+        rp.rope_prep(q32, k32, k32, cos32, sin32, nh=4, nkv=2, d=32)
+    with pytest.raises(ValueError, match="all f32 or all bf16"):
+        rp.rope_prep(q.half(), k.half(), v.half(), cos, sin, nh=4, nkv=2, d=128)
+    with pytest.raises(ValueError, match="float32"):
+        rp.rope_prep(q, k, v, cos.bfloat16(), sin, nh=4, nkv=2, d=128)
+
+
+# -- flash attention ------------------------------------------------------------------
+
+
+def _attn_case(b, h, l, d, dtype, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, l, d, generator=gen).to(device, dtype) for _ in range(3))
+    live = torch.randint(1, l + 1, (b,), generator=gen)
+    live[0] = l
+    seg = (torch.arange(l)[None, :] >= (l - live)[:, None]).to(device, torch.int32)
+    return q, k, v, seg
+
+
+def _attn_check(got, q, k, v, seg, causal=True):
+    from rag_arc_tpu_torch.ops.flash_attention import attention_plain
+
+    want = attention_plain(q, k, v, seg, causal=causal, sm_scale=q.shape[-1] ** -0.5)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert torch.isfinite(got).all()  # pad rows included
+    if q.dtype == torch.bfloat16:
+        # exp(s - running max) rounds to bf16 before P·V in the kernel,
+        # exp(s - final max) in the plain version; both round the output:
+        # 2 bf16 ulps at |out| < 4, plus 1% for the rounding of P
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1e-2)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)  # summation order
+
+
+@pytest.mark.parametrize("b,h,l,d,dtype", [
+    (2, 4, 128, 128, torch.bfloat16),
+    (3, 2, 200, 128, torch.bfloat16),   # ragged L: a partial last tile
+    (2, 2, 64, 64, torch.bfloat16),     # D = 64
+    (2, 3, 77, 64, torch.bfloat16),
+    (1, 2, 5, 128, torch.bfloat16),     # shorter than one tile
+    (2, 2, 70, 128, torch.float32),
+    (2, 2, 33, 64, torch.float32),
+])
+def test_flash_kernel_matches_plain(cuda, b, h, l, d, dtype):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _attn_case(b, h, l, d, dtype, cuda)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    _attn_check(got, q, k, v, seg)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_not_causal(cuda, dtype):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _attn_case(2, 2, 150, 128, dtype, cuda, seed=1)
+    got = fa.flash_attention(q, k, v, seg, causal=False)
+    torch.cuda.synchronize()
+    _attn_check(got, q, k, v, seg, causal=False)
+
+
+def test_flash_kernel_pad_rows_attend_only_pads(cuda):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _attn_case(2, 2, 96, 128, torch.bfloat16, cuda, seed=2)
+    seg[1] = (torch.arange(96, device=cuda) >= 70).int()
+    got = fa.flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1, :, 0], v[1, :, 0], atol=0, rtol=0)  # sees itself only
+    _attn_check(got, q, k, v, seg)
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_flash_kernel_on_offset_views(cuda, offset):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _attn_case(2, 2, 100, 128, torch.bfloat16, cuda, seed=3)
+    views = []
+    for t in (q, k, v):
+        flat = torch.cat([t.new_zeros(offset), t.flatten()])
+        views.append(flat[offset:].view(t.shape))
+    got = fa.flash_attention(*views, seg)
+    torch.cuda.synchronize()
+    _attn_check(got, q, k, v, seg)
+
+
+def test_flash_wrapper_refuses(cuda):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _attn_case(2, 2, 64, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, seg)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(2, 2, 64, 32, device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention(x, x, x, seg)
+    with pytest.raises(ValueError, match="all bf16 or all f32"):
+        fa.flash_attention(q.half(), k.half(), v.half(), seg)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_attention(q, k, v, seg.long())
+
+
+# -- the Qwen3 forward on the card ------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qwen3_kernel_path_close_to_einsum(cuda, dtype):
+    """A 2-layer Qwen3 at D=128 on the card: the kernel path ("auto")
+    against the einsum reference on the same weights, and both kernels
+    launched once per layer."""
+    from rag_arc_tpu_torch.models import qwen3 as tq
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    cfg = tq.Qwen3Config(vocab_size=1000, hidden_size=256, intermediate_size=512,
+                         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                         head_dim=128, dtype=dtype, param_dtype=dtype)
+    model = tq.init_qwen3(cfg, 0, cuda)
+    ref = tq.Qwen3LM(dataclasses.replace(cfg, attn_impl="einsum"), device=cuda)
+    ref.load_state_dict(model.state_dict())
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    ids = torch.randint(4, 1000, (5, 90), generator=gen).to(cuda)
+    mask = (torch.arange(90)[None, :] >= torch.tensor([0, 10, 50, 80, 89])[:, None]).to(cuda)
+    r0, f0 = rp.launches, fa.launches
+    with torch.no_grad():
+        got = model.last_logits(ids, mask).float()
+        want = ref.last_logits(ids, mask).float()
+    torch.cuda.synchronize()
+    assert rp.launches - r0 == 2 and fa.launches - f0 == 2
+    assert torch.isfinite(got).all()
+    # bf16: the two paths round at different points (models/qwen3.py)
+    atol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)

@@ -303,3 +303,201 @@ def test_masked_topk_chunked_matches(metric):
     )
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+
+
+# -- rope_prep (qk-norm + rope + transpose + GQA repeat) -------------------------
+
+
+def _rope_inputs(seed, b=4, l=64, nh=8, nkv=4, d=128, dtype="bf16"):
+    """q/k/v from a seed, HF left-padded positions (zeros through the pad,
+    then 0..n-1), and per-head norm scales."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, l, nh * d)).astype(np.float32)
+    k = rng.standard_normal((b, l, nkv * d)).astype(np.float32)
+    v = rng.standard_normal((b, l, nkv * d)).astype(np.float32)
+    pos = np.zeros((b, l), np.int32)
+    for i in range(b):
+        live = int(rng.integers(1, l + 1))
+        pos[i, l - live :] = np.arange(live)
+    qs = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    ks = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    if dtype == "bf16":  # both packages start from the same bf16 values
+        q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32) for a in (q, k, v))
+    return q, k, v, pos, qs, ks
+
+
+def test_rope_cos_sin_matches_jax():
+    from rag_arc_tpu.ops.rope_prep import rope_cos_sin as j_cos_sin
+    from rag_arc_tpu_torch.ops.rope_prep import rope_cos_sin
+
+    pos = _rope_inputs(0)[3]
+    for theta in (1e4, 1e6):
+        jc, js = j_cos_sin(jnp.asarray(pos), theta, 128)
+        tc, ts = rope_cos_sin(torch.from_numpy(pos), theta, 128)
+        # f32 cos/sin of the same angles: a few f32 ulps
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("nh,nkv", [(8, 4), (4, 4), (8, 2)])
+def test_rope_prep_plain_matches_jax(nh, nkv, norm, dtype):
+    from rag_arc_tpu.ops.rope_prep import rope_cos_sin as j_cos_sin
+    from rag_arc_tpu.ops.rope_prep import rope_prep as j_rope_prep
+    from rag_arc_tpu.ops.rope_prep import rope_prep_ref
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    jdt, tdt = DTYPES[dtype]
+    b, l, d = 4, 64, 128
+    q, k, v, pos, qs, ks = _rope_inputs(1, b, l, nh, nkv, d, dtype)
+    jcos, jsin = j_cos_sin(jnp.asarray(pos), 1e6, d)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    jqs, jks = (jnp.asarray(qs), jnp.asarray(ks)) if norm else (None, None)
+    kernel = j_rope_prep(jq, jk, jv, jcos, jsin, jqs, jks, nh=nh, nkv=nkv, d=d,
+                         interpret=True)
+    ref = rope_prep_ref(jq.reshape(b, l, nh, d), jk.reshape(b, l, nkv, d),
+                        jv.reshape(b, l, nkv, d), jcos, jsin, jqs, jks)
+    # the same tables on both sides: the test is of the prep, not of cos/sin
+    tcos, tsin = torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    tqs, tks = (torch.from_numpy(qs), torch.from_numpy(ks)) if norm else (None, None)
+    before = rp.launches
+    got = rp.rope_prep(tq, tk, tv, tcos, tsin, tqs, tks, nh=nh, nkv=nkv, d=d)
+    assert rp.launches == before  # CPU tensors take the plain version
+    plain = rp.rope_prep_plain(tq.reshape(b, l, nh, d), tk.reshape(b, l, nkv, d),
+                               tv.reshape(b, l, nkv, d), tcos, tsin, tqs, tks)
+    # bf16: one bf16 ulp at O(1) (the JAX kernel's own bar against its ref,
+    # tests/test_rope_prep.py); f32: summation-order noise
+    atol = 1e-2 if dtype == "bf16" else 1e-5
+    for want in (kernel, ref):
+        for g, p, w in zip(got, plain, want):
+            assert g.shape == (b, nh, l, d) and g.dtype == tdt
+            torch.testing.assert_close(g, p, atol=0, rtol=0)
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                       rtol=0, atol=atol)
+        # V is a copy: exact
+        np.testing.assert_array_equal(got[2].float().numpy(), np.asarray(want[2], np.float32))
+
+
+def test_rope_prep_takes_column_slices():
+    """The model passes the q/k/v column slices of its fused qkv output."""
+    from rag_arc_tpu_torch.ops.rope_prep import rope_cos_sin, rope_prep
+
+    b, l, nh, nkv, d = 2, 8, 4, 2, 64
+    qkv = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, l, (nh + 2 * nkv) * d)).astype(np.float32))
+    q, k, v = qkv[..., : nh * d], qkv[..., nh * d : (nh + nkv) * d], qkv[..., (nh + nkv) * d :]
+    cos, sin = rope_cos_sin(torch.arange(l).repeat(b, 1), 1e4, d)
+    got = rope_prep(q, k, v, cos, sin, nh=nh, nkv=nkv, d=d)
+    want = rope_prep(q.contiguous(), k.contiguous(), v.contiguous(), cos, sin,
+                     nh=nh, nkv=nkv, d=d)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_rope_prep_checks_shapes():
+    from rag_arc_tpu_torch.ops.rope_prep import rope_prep
+
+    q, k = torch.zeros(2, 8, 4 * 64), torch.zeros(2, 8, 2 * 64)
+    cos = torch.zeros(2, 8, 64)
+    with pytest.raises(ValueError, match="expected"):
+        rope_prep(q, k, k, cos, cos, nh=4, nkv=2, d=32)
+    with pytest.raises(ValueError, match="multiple"):
+        rope_prep(q, k, k, cos, cos, nh=4, nkv=3, d=64)
+    with pytest.raises(ValueError, match="together"):
+        rope_prep(q, k, k, cos, cos, torch.ones(64), nh=4, nkv=2, d=64)
+
+
+# -- causal segment-masked attention ------------------------------------------------
+
+
+def _attn_inputs(seed, b=3, h=4, l=40, d=64, dtype="f32"):
+    """q/k/v from a seed and left-padded rows: segment ids are the mask as
+    int (pad 0, live 1); row 0 is unpadded."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, l, d)).astype(np.float32) for _ in range(3))
+    if dtype == "bf16":
+        q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32) for a in (q, k, v))
+    live = rng.integers(1, l + 1, b)
+    live[0] = l
+    mask = np.arange(l)[None, :] >= (l - live)[:, None]
+    return q, k, v, mask
+
+
+def _jax_einsum_attention(q, k, v, mask, dtype):
+    """The einsum path of rag_arc_tpu/models/qwen3.py: f32 scores, a -1e9
+    causal & key-live bias, f32 softmax cast to the compute dtype."""
+    l, d = q.shape[2], q.shape[3]
+    causal = jnp.tril(jnp.ones((l, l), dtype=bool))[None, None]
+    bias = jnp.where(causal & jnp.asarray(mask)[:, None, None, :], 0.0, -1e9)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    scores = jnp.einsum("bhqd,bhkd->bhqk", jq, jk,
+                        preferred_element_type=jnp.float32) / np.sqrt(d)
+    probs = jax.nn.softmax(scores + bias, axis=-1).astype(dtype)
+    return np.asarray(jnp.einsum("bhqk,bhkd->bhqd", probs, jv), np.float32)
+
+
+@pytest.mark.parametrize("l", [40, 64, 130])
+def test_attention_plain_matches_library_reference(l):
+    """Every row, pads included, against the library's own reference of the
+    kernel the TPU path calls (f32; same segment rule)."""
+    from jax.experimental.pallas.ops.tpu.flash_attention import (
+        SegmentIds, mha_reference_no_custom_vjp)
+    from rag_arc_tpu_torch.ops.flash_attention import attention_plain
+
+    q, k, v, mask = _attn_inputs(4, l=l)
+    seg = mask.astype(np.int32)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    want = mha_reference_no_custom_vjp(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        segment_ids=SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)),
+        causal=True, sm_scale=scale,
+    )
+    got = attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(seg),
+                          causal=True, sm_scale=scale)
+    # f32 throughout: summation-order noise
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_attention_plain_matches_jax_einsum_on_live_rows(dtype):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, mask = _attn_inputs(5, dtype=dtype)
+    want = _jax_einsum_attention(q, k, v, mask, jdt)
+    before = fa.launches
+    got = fa.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                             torch.from_numpy(mask.astype(np.int32)))
+    assert fa.launches == before  # CPU tensors take the plain version
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    assert np.isfinite(got).all()  # pad rows too: they attend only pads
+    live = np.broadcast_to(mask[:, None, :], got.shape[:3])
+    # f32: summation order; bf16: the plain version rounds exp(s - max) to
+    # bf16 before P·V, the einsum path rounds the normalized probabilities,
+    # and both round the output: a few bf16 ulps at |out| < 4
+    atol = 1e-5 if dtype == "f32" else 3e-2
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=atol)
+
+
+def test_attention_pad_rows_attend_only_pads():
+    from rag_arc_tpu_torch.ops.flash_attention import attention_plain
+
+    q, k, v, mask = _attn_inputs(6, b=2, l=12)
+    mask[1] = np.arange(12) >= 5
+    got = attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                          torch.from_numpy(mask.astype(np.int32)), causal=True, sm_scale=0.125)
+    # pad row 0 of batch row 1 sees only itself
+    torch.testing.assert_close(got[1, :, 0], torch.from_numpy(v[1, :, 0]), atol=1e-6, rtol=0)
+
+
+def test_flash_attention_checks_shapes():
+    from rag_arc_tpu_torch.ops.flash_attention import flash_attention
+
+    q = torch.zeros(2, 4, 8, 64)
+    with pytest.raises(ValueError, match="expected"):
+        flash_attention(q, q[:, :2], q, torch.ones(2, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="segment_ids"):
+        flash_attention(q, q, q, torch.ones(2, 9, dtype=torch.int32))
