@@ -99,6 +99,30 @@ RERANK_B = 64
 RERANK_L = 512
 RERANK_REPS = 5
 H100_BF16_PEAK = 989e12  # dense bf16 FLOP/s, NVIDIA's data sheet (SXM, 700 W)
+H100_INT8_PEAK = 1979e12  # dense int8 OP/s, the same sheet
+H100_F32_PEAK = 67e12  # f32 FLOP/s outside the tensor cores, the same sheet
+H100_HBM = 3.35e12  # HBM3 bytes/s, the same sheet
+# the kernel probe's kernels: the pipelined producer, the fused top-k
+# (tile_n 2048 as the probe's fused config) and the corpus stream
+PIPED_CASES = [("bf16", 1), ("bf16", 7), ("bf16", 512), ("f32", 64), ("int8", 7),
+               ("int8", 512)]
+FUSED_CASES = [(1, False, False), (7, True, True), (130, True, False), (512, False, True),
+               (512, True, True)]  # (B, skip_tiles, packed)
+FUSED_TILE = 2048
+PROBE_N = 2_000_000
+PROBE_STREAM = 8
+PROBE_REPS = 3
+PROBE_CONFIGS = [  # the probe's default sweep comes first
+    {"kind": "stream", "tile_n": 2048, "g": 16, "producer": "stream"},
+    {"kind": "stream", "tile_n": 2048, "g": 16, "producer": "stream_piped"},
+    {"kind": "stream", "tile_n": 2048, "g": 16, "producer": "scan"},
+    {"kind": "fused", "tile_n": 2048, "skip_tiles": True, "packed": True},
+    {"kind": "fused", "tile_n": 2048, "skip_tiles": False, "packed": False},
+    {"kind": "dma_only", "tile_n": 2048},
+    {"kind": "dma_only", "tile_n": 2048, "dtype": "int8"},
+    {"kind": "p1_stream", "tile_n": 2048, "g": 16},
+    {"kind": "p1_stream", "tile_n": 2048, "g": 16, "pipelined": True},
+]
 ROPE_CASES = [  # (B, L, nh, nkv, D, dtype)
     (RERANK_B, RERANK_L, 16, 8, 128, "bf16"), (3, 77, 16, 8, 128, "bf16"),
     (4, 128, 8, 8, 128, "bf16"), (4, 96, 8, 4, 64, "bf16"), (4, 100, 16, 8, 128, "f32"),
@@ -173,6 +197,27 @@ def in_turns(kernel, plain, name: str, ops: float, unit: str, nbytes: float,
            f"{ops / kernel_ms / 1e9:.1f} {unit}, {nbytes / kernel_ms / 1e6:.1f} GB/s "
            f"{bytes_label}")
     return {"ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def bound(ops: float, peak: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate for their type and the bytes (each input read once,
+    each output written once) over the HBM rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_HBM * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def library_ms(fn, name: str) -> float:
+    """Mean ms of one PyTorch call that computes a kernel's function (a
+    yardstick the port never calls): one call outside the window, then 10."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = cuda_ms(fn, 10)
+    report(f"{name}: library call {ms:.3f} ms (CUDA events, mean of 10)")
+    return ms
 
 
 def unit_rows(gen, n: int, d: int, dtype, device):
@@ -283,7 +328,11 @@ def phase_kernel(torch, sm, dev) -> tuple[dict, dict]:
                   "TFLOP/s", n * DIM * 2)
     del x, valid, q, sq
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, **ip}, {"max_abs_err": l2_err, **l2}
+    nbytes = n * DIM * 2 + n + BATCH * DIM * 2 + 4 * BATCH * (n // G)
+    return ({"max_abs_err": max_err, **ip, **bound(flops, H100_BF16_PEAK, nbytes),
+             "library_ms": None},
+            {"max_abs_err": l2_err, **l2,
+             **bound(flops, H100_BF16_PEAK, nbytes + 4 * n + 4 * BATCH), "library_ms": None})
 
 
 def i8_inputs(torch, gen, n, b, block, dev):
@@ -347,8 +396,266 @@ def phase_kernel_i8(torch, smi8, dev) -> dict:
                        2.0 * BATCH * n * DIM, "TOP/s", n * DIM)
     del q, codes, scale, valid
     torch.cuda.empty_cache()
+    nbytes = n * DIM + n + 4 * n + BATCH * DIM + 4 * BATCH * (n // G)
     return {"max_abs_err": max_err, **timed,
+            **bound(2.0 * BATCH * n * DIM, H100_INT8_PEAK, nbytes), "library_ms": None,
             "per_row_ms": per_row["ms"], "per_row_plain_ms": per_row["plain_ms"]}
+
+
+def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
+    """The pipelined producer against its plain version, then in turns
+    against the stream kernels it would replace."""
+    phase("kernel against its plain version: subtile_max_piped (bf16/f32, int8 exact)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    max_err = 0.0
+    for dt_name, b in PIPED_CASES:
+        if dt_name == "int8":
+            q, x, scale, valid = i8_inputs(torch, gen, KERNEL_N, b, True, dev)
+        else:
+            dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
+            x = unit_rows(gen, KERNEL_N, DIM, dtype, dev)
+            valid = torch.rand(KERNEL_N, generator=gen, device=dev) > 0.03
+            x[~valid] = 0
+            q, scale = unit_rows(gen, b, DIM, dtype, dev), None
+        got = smp.subtile_max_piped(q, x, valid, G, scale=scale)
+        torch.cuda.synchronize()
+        want = smp.subtile_max_piped_plain(q, x, valid, G, scale=scale)
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        bar = 0.0 if dt_name == "int8" else TOL
+        report(f"piped {dt_name} B={b} N={KERNEL_N} d={DIM} g={G}: max|kernel - plain| = "
+               f"{err:.3e} (bound {bar:g}), dead rows {int((~valid).sum())}")
+        check(got.shape == (b, KERNEL_N // G), f"piped output shape {tuple(got.shape)}")
+        check(err <= bar, f"subtile_max_piped disagrees with its plain version: {err}")
+    del q, x, valid, got, want
+
+    n = TIMING_N - TIMING_N % G
+    x = unit_rows(gen, n, DIM, torch.bfloat16, dev)
+    valid = torch.rand(n, generator=gen, device=dev) > 0.03
+    x[~valid] = 0
+    q = unit_rows(gen, BATCH, DIM, torch.bfloat16, dev)
+    kernel = lambda: smp.subtile_max_piped(q, x, valid, G)  # noqa: E731
+    plain = lambda: smp.subtile_max_piped_plain(q, x, valid, G)  # noqa: E731
+    stream = lambda: sm.subtile_max(q, x, valid, G)  # noqa: E731
+    got, want = kernel(), plain()
+    err = float((got - want).abs().max())
+    max_err = max(max_err, err)
+    same = bool(torch.equal(got, stream()))
+    report(f"piped bf16 B={BATCH} N={n}: max|kernel - plain| = {err:.3e} (atol {TOL:g}); "
+           f"equal to subtile_max.cu's output: {same}")
+    check(err <= TOL, f"subtile_max_piped disagrees with its plain version at N={n}: {err}")
+    del got, want
+    flops = 2.0 * BATCH * n * DIM
+    timed = in_turns(kernel, plain, f"piped bf16 B={BATCH} N={n} d={DIM} g={G}", flops,
+                     "TFLOP/s", n * DIM * 2)
+    s1, p1, p2, s2 = (cuda_ms(f, 10) for f in (stream, kernel, kernel, stream))
+    report(f"piped against subtile_max.cu, bf16 B={BATCH} N={n}, in turns (stream, piped, "
+           f"piped, stream): piped {p1:.3f} / {p2:.3f} ms, stream {s1:.3f} / {s2:.3f} ms")
+    nbytes = n * DIM * 2 + n + BATCH * DIM * 2 + 4 * BATCH * (n // G)
+    out = {"max_abs_err": max_err, **timed, **bound(flops, H100_BF16_PEAK, nbytes),
+           "library_ms": None, "stream_ms": (s1 + s2) / 2}
+    del x, valid, q
+
+    q, codes, scale, valid = i8_inputs(torch, gen, n, BATCH, True, dev)
+    piped = lambda: smp.subtile_max_piped(q, codes, valid, G, scale=scale)  # noqa: E731
+    stream = lambda: smi8.subtile_max_i8(q, codes, scale, valid, G)  # noqa: E731
+    same = bool(torch.equal(piped(), stream()))
+    s1, p1, p2, s2 = (cuda_ms(f, 10) for f in (stream, piped, piped, stream))
+    report(f"piped int8 B={BATCH} N={n}: equal to subtile_max_i8.cu's output: {same}; in "
+           f"turns: piped {p1:.3f} / {p2:.3f} ms, subtile_max_i8 {s1:.3f} / {s2:.3f} ms")
+    check(same, "piped int8 differs from subtile_max_i8 at N=2M")
+    out["i8_ms"], out["i8_stream_ms"] = (p1 + p2) / 2, (s1 + s2) / 2
+    del q, codes, scale, valid
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_corpus(torch, gen, n, dev):
+    """The probe's recipe: N(0, 1) unit rows (bf16), 3% dead and zeroed,
+    queries that are corpus rows plus 0.1 noise."""
+    x = torch.randn((n, DIM), generator=gen, device=dev)
+    x /= torch.linalg.norm(x, dim=1, keepdim=True)
+    valid = torch.rand(n, generator=gen, device=dev) > 0.03
+    x[~valid] = 0
+    return x.to(torch.bfloat16), valid
+
+
+def probe_queries(torch, gen, x, b, dev):
+    idx = torch.randint(0, x.shape[0], (b,), generator=gen, device=dev)
+    q = x[idx].float() + 0.1 * torch.randn((b, DIM), generator=gen, device=dev)
+    return q / torch.linalg.norm(q, dim=1, keepdim=True)
+
+
+def compare_topk(torch, fm, got, want, packed: bool, what: str) -> float:
+    """Checks the fused kernel's (scores, ids) against its plain version's:
+    not packed, scores within TOL and ids equal except between candidates
+    within TOL of the k-th score; packed, quantized scores equal or one
+    quantum apart, and ids equal except within one quantum of the k-th.
+    Returns the max abs score difference."""
+    gs, gp = (t.cpu() for t in got)
+    ws, wp = (t.cpu() for t in want)
+    err = float((gs - ws).abs().max())
+    if packed:  # scores in quanta: the key with its index bits shifted out
+        bits = fm.packed_bits(FUSED_TILE, True)
+        gv = (fm.quantize_keys(gs, bits).long() >> bits).double()
+        wv = (fm.quantize_keys(ws, bits).long() >> bits).double()
+        slack = 1.0
+    else:
+        gv, wv, slack = gs.double(), ws.double(), TOL
+    off = float((gv - wv).abs().max())
+    bad = 0
+    for i in range(gp.shape[0]):
+        diff = set(gp[i].tolist()) ^ set(wp[i].tolist())
+        score = dict(zip(gp[i].tolist() + wp[i].tolist(), gv[i].tolist() + wv[i].tolist()))
+        bad += any(abs(score[p] - float(wv[i, -1])) > slack for p in diff)
+    report(f"fused {what}: max|kernel - plain| score {err:.3e}, "
+           f"{'quanta' if packed else 'abs'} apart at most {off:g} (bound {slack:g}); rows "
+           f"whose ids differ beyond a tie at the k-th score: {bad}")
+    check(off <= slack, f"fused_mips_topk scores disagree with its plain version ({what})")
+    check(bad == 0, f"fused_mips_topk ids disagree with its plain version ({what})")
+    return err
+
+
+def phase_kernel_fused(torch, fm, dev) -> dict:
+    phase("kernel against its plain version: fused_mips_topk (cosine, bf16, tile 2048)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x, valid = probe_corpus(torch, gen, KERNEL_N, dev)
+    sq = torch.ones(KERNEL_N, device=dev)
+    max_err = 0.0
+    for b, skip, packed in FUSED_CASES:
+        q = probe_queries(torch, gen, x, b, dev)
+        got = fm.fused_mips_topk(q, x, valid, sq, K, tile_n=FUSED_TILE, skip_tiles=skip,
+                                 packed=packed)
+        torch.cuda.synchronize()
+        want = fm.fused_mips_topk_plain(q, x, valid, sq, K, FUSED_TILE, "cosine", skip, packed)
+        check(got[0].shape == (b, K) and got[1].shape == (b, K), "fused output shape")
+        max_err = max(max_err, compare_topk(
+            torch, fm, got, want, packed,
+            f"B={b} N={KERNEL_N} skip_tiles={skip} packed={packed}"))
+    del x, valid, sq
+
+    n = -(-PROBE_N // 4096) * 4096  # the probe pads its rows to 4096
+    x, valid = probe_corpus(torch, gen, n, dev)
+    valid[PROBE_N:] = False
+    x[PROBE_N:] = 0
+    sq = torch.ones(n, device=dev)
+    q = probe_queries(torch, gen, x[:PROBE_N], BATCH, dev)
+    kernel = lambda: fm.fused_mips_topk(q, x, valid, sq, K, tile_n=FUSED_TILE,  # noqa: E731
+                                        skip_tiles=True, packed=True)
+    plain = lambda: fm.fused_mips_topk_plain(q, x, valid, sq, K, FUSED_TILE,  # noqa: E731
+                                             "cosine", True, True)
+    max_err = max(max_err, compare_topk(torch, fm, kernel(), plain(), True,
+                                        f"B={BATCH} N={n} skip_tiles packed"))
+    flops = 2.0 * BATCH * n * DIM
+    timed = in_turns(kernel, plain, f"fused bf16 B={BATCH} N={n} d={DIM} k={K} skip_tiles "
+                     "packed", flops, "TFLOP/s", n * DIM * 2)
+    unpacked = lambda: fm.fused_mips_topk(q, x, valid, sq, K, tile_n=FUSED_TILE)  # noqa: E731
+    unpacked()
+    report(f"fused, skip_tiles and packed off: {cuda_ms(unpacked, 5):.3f} ms (CUDA events)")
+    nbytes = n * DIM * 2 + n + BATCH * DIM * 2 + 8 * BATCH * K
+    del x, valid, sq, q
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **timed, **bound(flops, H100_BF16_PEAK, nbytes),
+            "library_ms": None}
+
+
+def phase_kernel_stream(torch, cst, dev) -> dict:
+    phase("kernel against its plain version: corpus_stream (exact)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        if dtype == torch.int8:
+            x = torch.randint(-127, 128, (KERNEL_N, DIM), generator=gen, device=dev,
+                              dtype=torch.int8)
+        else:
+            x = torch.randn((KERNEL_N, DIM), generator=gen, device=dev).to(dtype)
+        got = cst.corpus_stream(x)
+        torch.cuda.synchronize()
+        err = float((got - cst.corpus_stream_plain(x)).abs().max())
+        report(f"corpus_stream {dtype} N={KERNEL_N} d={DIM}: max|kernel - plain| = {err:.3e} "
+               f"(must be 0)")
+        check(got.shape == (8, DIM) and err == 0.0, f"corpus_stream differs: {err}")
+    n = TIMING_N
+    x = torch.randn((n, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    kernel = lambda: cst.corpus_stream(x)  # noqa: E731
+    plain = lambda: cst.corpus_stream_plain(x)  # noqa: E731
+    lib = lambda: torch.amax(x.view(-1, 8, DIM), dim=0)  # noqa: E731
+    err = float((kernel() - plain()).abs().max())
+    check(err == 0.0 and torch.equal(kernel(), lib().float()),
+          "corpus_stream differs from its plain version or the library call at N=2M")
+    nbytes = n * DIM * 2 + 8 * DIM * 4
+    timed = in_turns(kernel, plain, f"corpus_stream bf16 N={n} d={DIM}", n * DIM,
+                     "T max/s", nbytes, "of corpus")
+    lib_ms = library_ms(lib, f"torch.amax(corpus.view(-1, 8, {DIM}), dim=0) bf16 N={n}")
+    del x
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, **timed, **bound(n * DIM, H100_F32_PEAK, nbytes),
+            "library_ms": lib_ms}
+
+
+def phase_probe(torch, smp, fm, cst, dev) -> dict:
+    """The kernel probe, the path of the last three kernels: its default
+    sweep plus every producer, both fused modes and both corpus types."""
+    from rag_arc_tpu_torch.tools import kernel_probe as kp
+
+    configs = kp.parse_configs("") + PROBE_CONFIGS
+    phase(f"kernel probe: {PROBE_N} x {DIM} bf16 (+ int8), B={BATCH}, k={K}, "
+          f"{len(configs)} configs, {PROBE_REPS} streams of {PROBE_STREAM} batches")
+    t0 = time.perf_counter()
+    data = kp.make_data(PROBE_N, DIM, BATCH, PROBE_STREAM, K, SEED, dev, int8=True)
+    torch.cuda.synchronize()
+    report(f"probe data made on the card in {time.perf_counter() - t0:.1f} s")
+    counters = {"subtile_max_piped": Counter(smp), "fused_mips_topk": Counter(fm),
+                "corpus_stream": Counter(cst)}
+    for c in counters.values():
+        c.reset()
+    stream_top = {}
+    for cfg in configs:
+        try:
+            line, top = kp.probe(cfg, data, K, PROBE_REPS, dev)
+        except Exception as exc:  # noqa: BLE001 — reported, then the run fails
+            raise SmokeFailure(f"probe config {cfg} failed: {exc}") from exc
+        report("probe " + json.dumps(line))
+        if line["recall"] is not None:
+            check(line["recall"] >= 0.99, f"probe {cfg}: recall@10 {line['recall']} < 0.99")
+        if cfg["kind"] == "stream":
+            stream_top[cfg["producer"]] = top
+    launches = {name: c.read() for name, c in counters.items()}
+    # the two kernels give bit-equal sub-tile maxima, so equal ids; the
+    # scan's f32 matmul sums in another order, so its ids may differ from
+    # theirs only between candidates tied with the k-th score
+    (s_ref, ids_ref), (_, ids_piped) = stream_top["stream"], stream_top["stream_piped"]
+    same = bool(np.array_equal(ids_ref, ids_piped))
+    s_scan, ids_scan = stream_top["scan"]
+    rows = np.flatnonzero((ids_scan != ids_ref).any(axis=1))
+    untied = 0
+    for i in rows:
+        score = dict(zip(ids_ref[i].tolist() + ids_scan[i].tolist(),
+                         s_ref[i].tolist() + s_scan[i].tolist()))
+        diff = set(ids_ref[i].tolist()) ^ set(ids_scan[i].tolist())
+        untied += any(abs(score[p] - float(s_ref[i, -1])) > TOL for p in diff)
+    # pass 1 itself, on the same batch: the scan's maxima against
+    # subtile_max.cu's, so the relaxed id check rests on a direct one
+    cfg = PROBE_CONFIGS[0]
+    q0 = data["batches"][0].to(data["emb"].dtype)
+    p1 = {p: kp.produce(p, q0, data["emb"], data["valid"], cfg["g"], cfg["tile_n"])
+          for p in ("stream", "scan")}
+    gaps = (p1["scan"] - p1["stream"]).abs()
+    gap = float(gaps.max())
+    gap_rows = float(gaps[torch.as_tensor(rows, device=dev)].max()) if len(rows) else 0.0
+    del p1, gaps
+    report(f"probe: stream and stream_piped ids equal: {same}; scan ids differ in "
+           f"{len(rows)} of {len(ids_ref)} rows, beyond a tie at the k-th score (atol "
+           f"{TOL:g}) in {untied}; pass 1 on that batch, max|scan - subtile_max.cu| = "
+           f"{gap:.3e} (atol {TOL:g}), {gap_rows:.3e} on the rows whose ids differ; "
+           f"kernel launches {launches}")
+    check(same, "the stream and stream_piped producers' ids differ")
+    check(untied == 0, "the scan producer's ids differ beyond ties at the k-th score")
+    check(gap <= TOL, f"the scan's pass-1 maxima disagree with subtile_max.cu's: {gap}")
+    for name, n in launches.items():
+        check(n >= 1, f"the probe never launched {name}")
+    del data
+    torch.cuda.empty_cache()
+    return launches
 
 
 def make_index_data(torch, dev) -> dict:
@@ -827,7 +1134,8 @@ def phase_rope(torch, rp, dev) -> dict:
                      moved, "TB/s moved (reads + writes)", read, "read")
     del q, k, v, cos, sin
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, **timed}
+    return {"max_abs_err": max_err, **timed, **bound(0.0, H100_BF16_PEAK, moved),
+            "library_ms": None}
 
 
 def attn_inputs(torch, gen, b, h, l, d, dtype, dev):
@@ -864,11 +1172,22 @@ def phase_flash(torch, fa, dev) -> dict:
     kernel = lambda: fa.flash_attention(q, k, v, seg)  # noqa: E731
     plain = lambda: fa.attention_plain(q, k, v, seg, causal=True, sm_scale=d ** -0.5)  # noqa: E731
     flops = 4.0 * b * h * l * l * d / 2  # the causal half
+    nbytes = 4 * b * h * l * d * 2 + 4 * b * l
     timed = in_turns(kernel, plain, f"flash_attention bf16 B={b} H={h} L={l} D={d} causal",
-                     flops, "TFLOP/s", 4 * b * h * l * d * 2, "of Q, K, V, out")
-    del q, k, v, seg
+                     flops, "TFLOP/s", nbytes, "of Q, K, V, out")
+    # the library yardstick: SDPA with the boolean mask causal & same
+    # segment; under the segment rule no row is fully masked
+    causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
+    mask = causal[None, None] & (seg[:, None, :, None] == seg[:, None, None, :])
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, scale=d ** -0.5)
+    lib_err = float((lib().float() - kernel().float()).abs().max())
+    lib_ms = library_ms(lib, f"scaled_dot_product_attention bf16 B={b} H={h} L={l} D={d}, "
+                        f"causal & segment mask (max|library - kernel| {lib_err:.3e})")
+    del q, k, v, seg, mask
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, **timed}
+    return {"max_abs_err": max_err, **timed, **bound(flops, H100_BF16_PEAK, nbytes),
+            "library_ms": lib_ms}
 
 
 def rerank_flops_per_pair(cfg, length: int) -> float:
@@ -1114,16 +1433,23 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import flash_attention as fa
     from rag_arc_tpu_torch.ops import rope_prep as rp
     from rag_arc_tpu_torch.ops import subtile_max_i8 as smi8
+    from rag_arc_tpu_torch.ops import subtile_max_piped as smp
+    from rag_arc_tpu_torch.ops import fused_mips as fm
+    from rag_arc_tpu_torch.ops import corpus_stream as cst
 
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     try:
         phase_environment(torch)
-        phase_build([sm, smi8, rp, fa])
+        phase_build([sm, smi8, rp, fa, smp, fm, cst])
         kernel, kernel_l2 = phase_kernel(torch, sm, dev)
         kernel_i8 = phase_kernel_i8(torch, smi8, dev)
         kernel_rope = phase_rope(torch, rp, dev)
         kernel_flash = phase_flash(torch, fa, dev)
+        kernel_piped = phase_kernel_piped(torch, sm, smi8, smp, dev)
+        kernel_fused = phase_kernel_fused(torch, fm, dev)
+        kernel_stream = phase_kernel_stream(torch, cst, dev)
+        probe_launches = phase_probe(torch, smp, fm, cst, dev)
         data = make_index_data(torch, dev)
         phase_index(torch, sm, dev, data)
         l2_launches = phase_index_l2(torch, sm, dev, data)
@@ -1159,6 +1485,15 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": src + "flash_attention.cu",
          "replaces": "rag_arc_tpu/models/qwen3.py:176-196 (library Pallas flash attention)",
          "launches": flash_launches, **kernel_flash},
+        {"name": "subtile_max_piped", "route": "cuda", "source": src + "subtile_max_piped.cu",
+         "replaces": "rag_arc_tpu/ops/two_level_stream.py:53",
+         "launches": probe_launches["subtile_max_piped"], **kernel_piped},
+        {"name": "fused_mips_topk", "route": "cuda", "source": src + "fused_mips.cu",
+         "replaces": "rag_arc_tpu/ops/fused_mips.py:50",
+         "launches": probe_launches["fused_mips_topk"], **kernel_fused},
+        {"name": "corpus_stream", "route": "cuda", "source": src + "corpus_stream.cu",
+         "replaces": "tools/kernel_probe.py:194",
+         "launches": probe_launches["corpus_stream"], **kernel_stream},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,7 @@
 """Host-side document store.
 
-A copy of ``rag_arc_tpu/index/docstore.py``: the module itself is
-host-only, but importing it runs ``rag_arc_tpu/index/__init__.py``, which
-imports the JAX index modules, and the port never imports JAX.
+A copy of ``rag_arc_tpu/index/docstore.py``: the port imports nothing
+of the JAX package.
 
 Replaces the reference's FAISS sidecar bookkeeping
 (``VectorStore_Faiss.py:96-97``: ``docstore: dict[id→Document]`` +
@@ -17,7 +16,7 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Sequence
 
-from rag_arc_tpu.utils.data_model import Document
+from rag_arc_tpu_torch.utils.data_model import Document
 
 
 class Docstore:

@@ -45,7 +45,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from rag_arc_tpu.utils.tracing import stage
+from rag_arc_tpu_torch.utils.tracing import stage
 from rag_arc_tpu_torch.ops.scoring import NEG_INF, dot_f32
 from rag_arc_tpu_torch.ops.topk import masked_topk, stable_topk
 from rag_arc_tpu_torch.ops.two_level import (

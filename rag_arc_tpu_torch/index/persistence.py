@@ -20,8 +20,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from rag_arc_tpu.models.embeddings import Embeddings
-from rag_arc_tpu.utils.data_model import Document
+from rag_arc_tpu_torch.models.embeddings import Embeddings
+from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
 
 FORMAT = "rag_arc_tpu.store.v1"

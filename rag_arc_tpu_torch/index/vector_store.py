@@ -25,10 +25,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rag_arc_tpu.models.embeddings import Embeddings
-from rag_arc_tpu.utils.data_model import Document
-from rag_arc_tpu.utils.locks import RWLock
-from rag_arc_tpu.utils.tracing import get_tracer, stage  # noqa: F401 (re-exported: the store's spans)
+from rag_arc_tpu_torch.models.embeddings import Embeddings
+from rag_arc_tpu_torch.utils.data_model import Document
+from rag_arc_tpu_torch.utils.locks import RWLock
+from rag_arc_tpu_torch.utils.tracing import get_tracer, stage  # noqa: F401 (re-exported: the store's spans)
 from rag_arc_tpu_torch.index.docstore import Docstore
 from rag_arc_tpu_torch.index.flat import DeviceFlatIndex, fetch_pair, normalize_raw
 

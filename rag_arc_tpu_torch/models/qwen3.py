@@ -274,7 +274,7 @@ class Qwen3Embeddings:
     what it is batched with."""
 
     def __init__(self, model: Qwen3LM, tokenizer, batch_size: int = 32):
-        from rag_arc_tpu.models.tokenizer import HFTokenizerAdapter
+        from rag_arc_tpu_torch.models.tokenizer import HFTokenizerAdapter
 
         self.model = model
         self.device = model.embed_tokens.weight.device

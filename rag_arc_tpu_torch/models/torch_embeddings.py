@@ -4,8 +4,9 @@
 Documents of at most ``PACK_MAX_TOKENS`` tokens are packed several to a
 ``PACK_ROW_LEN``-token row (``PackedTextEncoder``); longer ones are padded
 to a length bucket (``TextEncoder``). Newlines are stripped before
-encoding. Tokenization and packing reuse the JAX package's host-only
-``HashTokenizer`` and ``pack_token_lists``.
+encoding. Tokenization and packing use the port's copies of
+``HashTokenizer`` and ``pack_token_lists`` (``models/tokenizer.py``,
+``models/packing.py``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from rag_arc_tpu.models.embeddings import Embeddings
-from rag_arc_tpu.models.packing import pack_token_lists
-from rag_arc_tpu.models.tokenizer import HashTokenizer
+from rag_arc_tpu_torch.models.embeddings import Embeddings
+from rag_arc_tpu_torch.models.packing import pack_token_lists
+from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
 from rag_arc_tpu_torch.models.encoder import (
     PackedTextEncoder,
     TextEncoder,

@@ -29,7 +29,9 @@ from rag_arc_tpu_torch.ops._build import Built, build
 
 NEG = -3.0e38  # sentinel below any real score (avoids inf - inf)
 
-SUPPORTED_G = (16, 32, 64, 128)
+SUPPORTED_G = (16, 32, 64, 128, 256)
+# rows a kernel block reduces: a wider g is served from g = 128 maxima
+KERNEL_MAX_G = 128
 
 # kernel launches since the counts were last set to 0, cosine/ip and l2
 # mode apart; only the wrapper's CUDA branch adds to them
@@ -44,6 +46,14 @@ def query_sqnorm(queries: torch.Tensor) -> torch.Tensor:
     corpus dtype, widened to f32)."""
     q32 = queries.float()
     return torch.sum(q32 * q32, dim=1)
+
+
+def widen_g(sub: torch.Tensor, g: int, kernel_g: int) -> torch.Tensor:
+    """(B, N/g) maxima from (B, N/kernel_g) maxima: the exact pairwise max
+    of neighbouring sub-tiles (g a multiple of kernel_g)."""
+    if g == kernel_g:
+        return sub
+    return sub.reshape(sub.shape[0], -1, g // kernel_g).amax(dim=2)
 
 
 def subtile_max_plain(
@@ -115,7 +125,8 @@ def subtile_max(
 
     ``queries`` are already normalized (cosine) and cast to the corpus
     dtype (f32 or bf16). CPU tensors take :func:`subtile_max_plain`; CUDA
-    tensors launch the kernel on the current stream or raise."""
+    tensors launch the kernel on the current stream or raise. g = 256 runs
+    the kernel at g = 128 and takes the pairwise max (:func:`widen_g`)."""
     global launches, launches_l2
     _check(queries, corpus, valid, g, sqnorm)
     if corpus.device.type == "cpu":
@@ -139,9 +150,10 @@ def subtile_max(
     n = corpus.shape[0]
     if n >= 2**31 or b * d >= 2**31:
         raise ValueError("subtile_max kernel indexes rows with 32-bit ints")
-    out = torch.empty((b, n // g), dtype=torch.float32, device=corpus.device)
+    kg = min(g, KERNEL_MAX_G)
+    out = torch.empty((b, n // kg), dtype=torch.float32, device=corpus.device)
     if b == 0 or n == 0:
-        return out
+        return widen_g(out, g, kg)
     fn = load().lib.subtile_max_launch
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -150,7 +162,7 @@ def subtile_max(
             valid.view(torch.uint8).data_ptr(),
             None if q_sq is None else q_sq.data_ptr(),
             None if sqnorm is None else sqnorm.data_ptr(),
-            out.data_ptr(), b, n, d, g, _DTYPE_CODE[corpus.dtype], stream,
+            out.data_ptr(), b, n, d, kg, _DTYPE_CODE[corpus.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"subtile_max kernel launch failed: CUDA error {err}")
@@ -158,4 +170,4 @@ def subtile_max(
         launches += 1
     else:
         launches_l2 += 1
-    return out
+    return widen_g(out, g, kg)

@@ -21,7 +21,7 @@ import functools
 import torch
 
 from rag_arc_tpu_torch.ops._build import Built, build
-from rag_arc_tpu_torch.ops.subtile_max import NEG, SUPPORTED_G
+from rag_arc_tpu_torch.ops.subtile_max import KERNEL_MAX_G, NEG, SUPPORTED_G, widen_g
 
 MASK_I32 = -(1 << 30)  # raw-dot sentinel of a dead row (block mode)
 
@@ -117,7 +117,8 @@ def subtile_max_i8(
 
     ``block_scales=True`` asserts that every g-row sub-tile shares one
     scale. CPU tensors take :func:`subtile_max_i8_plain`; CUDA tensors
-    launch the kernel on the current stream or raise."""
+    launch the kernel on the current stream or raise (g = 256 from the
+    g = 128 kernel and a pairwise max, as in ``subtile_max``)."""
     global launches
     _check(q_i8, codes, scale, valid, g)
     if codes.device.type == "cpu":
@@ -133,18 +134,19 @@ def subtile_max_i8(
     n = codes.shape[0]
     if n >= 2**31 or b * d >= 2**31:
         raise ValueError("subtile_max_i8 kernel indexes rows with 32-bit ints")
-    out = torch.empty((b, n // g), dtype=torch.float32, device=codes.device)
+    kg = min(g, KERNEL_MAX_G)
+    out = torch.empty((b, n // kg), dtype=torch.float32, device=codes.device)
     if b == 0 or n == 0:
-        return out
+        return widen_g(out, g, kg)
     fn = load().lib.subtile_max_i8_launch
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q_i8.data_ptr(), codes.data_ptr(), scale.data_ptr(),
             valid.view(torch.uint8).data_ptr(), out.data_ptr(),
-            b, n, d, g, int(block_scales), stream,
+            b, n, d, kg, int(block_scales), stream,
         )
     if err != 0:
         raise RuntimeError(f"subtile_max_i8 kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return widen_g(out, g, kg)

@@ -1,8 +1,14 @@
 """Two-level exact MIPS top-k (counterpart of ``rag_arc_tpu/ops/two_level.py``).
 
-  pass 1 (CUDA kernel): the max score of every g-row sub-tile, dead rows
-    masked → (B, N/g) f32. bf16/f32 corpora (cosine, ip, l2) run
-    ``ops/subtile_max.py``; int8 corpora run ``ops/subtile_max_i8.py``.
+  pass 1 (the producer): the max score of every g-row sub-tile, dead rows
+    masked → (B, N/g) f32. ``producer`` picks it, as in the JAX package's
+    ``two_level_stream.py::_produce``:
+      "stream" (the default): the CUDA kernels of ``ops/subtile_max.py``
+        (bf16/f32: cosine, ip, l2) and ``ops/subtile_max_i8.py`` (int8);
+      "stream_piped": the pipelined CUDA kernel of
+        ``ops/subtile_max_piped.py`` (cosine/ip; int8 with block scales);
+      "scan": :func:`subtile_max_scan`, plain torch over row tiles.
+    Every producer is masked, so every producer gives the same ids.
   select: each query's top-k sub-tiles by max (``iterative_argmax_resid``).
   pass 2: gather those k·g rows, rescore them exactly, final top-k.
 
@@ -37,8 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rag_arc_tpu_torch.ops.subtile_max import NEG, subtile_max
-from rag_arc_tpu_torch.ops.subtile_max_i8 import subtile_max_i8
+from rag_arc_tpu_torch.ops.subtile_max import NEG, subtile_max, subtile_max_plain
+from rag_arc_tpu_torch.ops.subtile_max_i8 import subtile_max_i8, subtile_max_i8_plain
+from rag_arc_tpu_torch.ops.subtile_max_piped import subtile_max_piped
 from rag_arc_tpu_torch.ops.topk import stable_topk
 
 # -- quantization -------------------------------------------------------------
@@ -63,20 +70,24 @@ def quantize_rows_blocked(vectors, block: int = 32):
     exact scaled sub-tile max.
 
     Returns (codes (n_pad, d) int8, scales (n_pad,) f32 expanded per row).
+    A torch tensor is quantized where it lies and gives torch tensors; a
+    numpy array goes through the same steps on the CPU and gives numpy
+    arrays. ``torch.round`` rounds half to even like the JAX package's
+    ``np.rint``, so the codes and scales are bit-identical with its.
     """
-    vectors = np.asarray(vectors, dtype=np.float32)
+    if not isinstance(vectors, torch.Tensor):
+        host = np.asarray(vectors, dtype=np.float32)
+        codes, scales = quantize_rows_blocked(
+            torch.from_numpy(host if host.flags.writeable else host.copy()), block)
+        return codes.numpy(), scales.numpy()
+    vectors = vectors.float()
     n, d = vectors.shape
-    n_pad = ((n + block - 1) // block) * block
-    if n_pad != n:
-        vectors = np.concatenate(
-            [vectors, np.zeros((n_pad - n, d), dtype=np.float32)]
-        )
-    blocks = vectors.reshape(n_pad // block, block, d)
-    amax = np.abs(blocks).max(axis=(1, 2), keepdims=True)
-    scale = np.maximum(amax, 1e-12) / 127.0
-    codes = np.clip(np.rint(blocks / scale), -127, 127).astype(np.int8)
-    scales = np.repeat(scale[:, 0, 0].astype(np.float32), block)
-    return codes.reshape(n_pad, d), scales
+    n_pad = -(-n // block) * block
+    blocks = F.pad(vectors, (0, 0, 0, n_pad - n)).reshape(n_pad // block, block, d)
+    amax = torch.amax(torch.abs(blocks), dim=(1, 2), keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    codes = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return codes.reshape(n_pad, d), scale[:, 0, 0].repeat_interleave(block)
 
 
 def row_norm(x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +125,76 @@ def quantize_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     qscale = torch.clamp(qmax, min=1e-12) / 127.0
     q_i8 = torch.clamp(torch.round(qn / qscale), -127, 127).to(torch.int8)
     return q_i8, qscale
+
+
+# -- producers -----------------------------------------------------------------
+
+PRODUCERS = ("stream", "stream_piped", "scan")
+
+
+def subtile_max_scan(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    valid: torch.Tensor,
+    g: int = 16,
+    tile_n: int = 2048,
+    sqnorm: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    block_scales: bool = True,
+) -> torch.Tensor:
+    """(B, N/g) sub-tile maxima by a plain torch loop over ``tile_n``-row
+    tiles, so no (B, N) score matrix exists at once: the counterpart of
+    ``rag_arc_tpu/ops/two_level.py::subtile_max_scan`` (``producer="scan"``).
+    Each tile takes the stream kernels' plain versions, so it is masked
+    like them (the JAX scan is maskless and relies on zeroed dead rows).
+    int8 corpora need their per-row ``scale``; l2 takes ``sqnorm``."""
+    if tile_n % g:
+        raise ValueError(f"tile_n {tile_n} not a multiple of g {g}")
+    n = corpus.shape[0]
+    if n % g:
+        raise ValueError(f"corpus rows {n} not a multiple of g {g}")
+    out = torch.empty((queries.shape[0], n // g), dtype=torch.float32,
+                      device=corpus.device)
+    for start in range(0, n, tile_n):
+        stop = min(start + tile_n, n)
+        if corpus.dtype == torch.int8:
+            sub = subtile_max_i8_plain(queries, corpus[start:stop], scale[start:stop],
+                                       valid[start:stop], g, block_scales)
+        else:
+            sub = subtile_max_plain(queries, corpus[start:stop], valid[start:stop], g,
+                                    None if sqnorm is None else sqnorm[start:stop])
+        out[:, start // g : stop // g] = sub
+    return out
+
+
+def produce(
+    producer: str,
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    valid: torch.Tensor,
+    g: int,
+    tile_n: int = 2048,
+    sqnorm: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    block_scales: bool = True,
+) -> torch.Tensor:
+    """Pass 1 by the chosen producer (``PRODUCERS``): (B, N/g) f32 masked
+    sub-tile maxima. ``sqnorm`` selects l2; an int8 corpus takes query codes
+    and its row ``scale``. ``tile_n`` is the scan's row tile."""
+    if producer == "stream":
+        if corpus.dtype == torch.int8:
+            return subtile_max_i8(queries, corpus, scale, valid, g, block_scales=block_scales)
+        return subtile_max(queries, corpus, valid, g, sqnorm=sqnorm)
+    if producer == "stream_piped":
+        if sqnorm is not None:
+            raise ValueError("the pipelined producer takes cosine/ip, not l2")
+        if corpus.dtype == torch.int8 and not block_scales:
+            raise ValueError("the pipelined producer's int8 mode needs block scales")
+        return subtile_max_piped(queries, corpus, valid, g, scale=scale)
+    if producer == "scan":
+        return subtile_max_scan(queries, corpus, valid, g, tile_n, sqnorm, scale,
+                                block_scales)
+    raise ValueError(f"unknown producer {producer!r}; one of {PRODUCERS}")
 
 
 # -- select -------------------------------------------------------------------
@@ -245,15 +326,21 @@ def two_level_topk(
     g: int = 16,
     metric: str = "cosine",
     sqnorm: Optional[torch.Tensor] = None,
+    producer: str = "stream",
+    tile_n: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, d) × (N, d) → exact top-k (scores (B, k) f32, positions (B, k)
     int64). N must be a multiple of ``g``; ``valid`` masks padding and
     tombstones; for cosine the corpus must be pre-normalized; l2 needs the
-    corpus's f32 squared norms ``sqnorm``."""
+    corpus's f32 squared norms ``sqnorm``. ``producer`` picks pass 1 (see
+    the module docstring); ``tile_n`` is the "scan" producer's row tile."""
     if metric == "l2" and sqnorm is None:
         raise ValueError("l2 two-level search needs the corpus sqnorm")
+    if producer not in PRODUCERS:
+        raise ValueError(f"unknown producer {producer!r}; one of {PRODUCERS}")
     qc = prepare_queries(queries, corpus.dtype, metric)
-    sub = subtile_max(qc, corpus, valid, g, sqnorm=sqnorm if metric == "l2" else None)
+    sub = produce(producer, qc, corpus, valid, g, tile_n,
+                  sqnorm=sqnorm if metric == "l2" else None)
     return select_rescore(qc, corpus, valid, sub, k, g, metric, sqnorm)
 
 
@@ -321,6 +408,8 @@ def two_level_topk_i8(
     k: int,
     g: int = 16,
     block_scales: bool = False,
+    producer: str = "stream",
+    tile_n: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantized two-level top-k (cosine/ip): f32 queries (B, d), int8
     corpus (N, d) of pre-normalized quantized rows, per-row scales (N,).
@@ -329,7 +418,11 @@ def two_level_topk_i8(
     ``block_scales=True`` asserts every g-row sub-tile shares ONE scale
     (``DeviceFlatIndex``'s int8 storage) and folds the scale in after the
     raw sub-tile max; callers with per-row scales (``quantize_rows``)
-    leave it False."""
+    leave it False. ``producer`` picks pass 1 ("stream_piped" needs block
+    scales); ``tile_n`` is the "scan" producer's row tile."""
+    if producer not in PRODUCERS:
+        raise ValueError(f"unknown producer {producer!r}; one of {PRODUCERS}")
     q_i8, qscale = quantize_queries(queries)
-    sub = subtile_max_i8(q_i8, corpus, row_scale, valid, g, block_scales=block_scales)
+    sub = produce(producer, q_i8, corpus, valid, g, tile_n, scale=row_scale,
+                  block_scales=block_scales)
     return select_rescore_i8(q_i8, qscale, corpus, row_scale, valid, sub, k, g)

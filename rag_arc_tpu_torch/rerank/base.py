@@ -1,8 +1,7 @@
 """Reranker interface.
 
-A copy of ``rag_arc_tpu/rerank/base.py``: the module itself is host-only,
-but importing it runs ``rag_arc_tpu/rerank/__init__.py``, which imports
-the JAX cross-encoder, and the port never imports JAX.
+A copy of ``rag_arc_tpu/rerank/base.py``: the port imports nothing of
+the JAX package.
 
 Parity with the reference's ``RerankerBase`` (``core/rerank/base.py:5-27``):
 ``rerank(query, documents, **kw) -> list[Document]`` sorted by relevance,
@@ -15,7 +14,7 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from typing import Any, List, Sequence
 
-from rag_arc_tpu.utils.data_model import Document
+from rag_arc_tpu_torch.utils.data_model import Document
 
 
 class RerankerBase(ABC):

@@ -23,8 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from rag_arc_tpu.models.tokenizer import HashTokenizer
-from rag_arc_tpu.utils.data_model import Document
+from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
+from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.models.encoder import CausalLM, TransformerConfig, init_causal_lm
 from rag_arc_tpu_torch.rerank.base import RerankerBase
 

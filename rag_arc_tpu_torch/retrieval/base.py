@@ -1,8 +1,7 @@
 """Retriever base class.
 
-A copy of ``rag_arc_tpu/retrieval/base.py``: the module itself is
-host-only, but importing it runs ``rag_arc_tpu/retrieval/__init__.py``,
-which imports the JAX retrievers, and the port never imports JAX.
+A copy of ``rag_arc_tpu/retrieval/base.py``: the port imports nothing
+of the JAX package.
 
 Parity with the reference's ``core/retrieval/base.py:8-100``:
 ``invoke``/``ainvoke`` public entries, subclasses implement
@@ -21,7 +20,7 @@ from abc import ABC, abstractmethod
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional, Sequence
 
-from rag_arc_tpu.utils.data_model import Document
+from rag_arc_tpu_torch.utils.data_model import Document
 
 logger = logging.getLogger(__name__)
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from rag_arc_tpu.utils.data_model import Document
+from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.index.vector_store import VectorStore
 from rag_arc_tpu_torch.retrieval.base import BaseRetriever
 

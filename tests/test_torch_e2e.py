@@ -133,9 +133,23 @@ def test_port_imports_without_jax():
                      "rag_arc_tpu_torch.rerank.cross_encoder",
                      "rag_arc_tpu_torch.models.qwen3",
                      "rag_arc_tpu_torch.ops.rope_prep",
-                     "rag_arc_tpu_torch.ops.flash_attention"):
+                     "rag_arc_tpu_torch.ops.flash_attention",
+                     "rag_arc_tpu_torch.ops.subtile_max_piped",
+                     "rag_arc_tpu_torch.ops.fused_mips",
+                     "rag_arc_tpu_torch.ops.corpus_stream",
+                     "rag_arc_tpu_torch.tools.kernel_probe",
+                     "rag_arc_tpu_torch.utils.data_model",
+                     "rag_arc_tpu_torch.utils.locks",
+                     "rag_arc_tpu_torch.utils.tracing",
+                     "rag_arc_tpu_torch.models.embeddings",
+                     "rag_arc_tpu_torch.models.packing",
+                     "rag_arc_tpu_torch.models.tokenizer"):
             assert name in names, name
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax")))
+        assert not bad, bad
+        # nor anything of the JAX package, not even its host-only modules
+        bad = sorted(m for m in sys.modules
+                     if m == "rag_arc_tpu" or m.startswith("rag_arc_tpu."))
         assert not bad, bad
         print("ok", len(names))
         """

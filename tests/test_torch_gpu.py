@@ -1,5 +1,6 @@
 """Card-only tests of the port's CUDA kernels (sub-tile max bf16/f32 with
-its l2 mode, int8, rope_prep, flash attention): each kernel against its
+its l2 mode, int8, rope_prep, flash attention, the pipelined producer,
+the fused top-k and the corpus stream): each kernel against its
 plain PyTorch version at small shapes (int8 bit for bit), offset views
 and ragged lengths, the launch counts, the wrappers' refusals, and a
 small Qwen3 forward through both attention kernels. They skip where no
@@ -19,8 +20,11 @@ import pytest
 import torch
 
 from rag_arc_tpu_torch.index.flat import DeviceFlatIndex
+from rag_arc_tpu_torch.ops import corpus_stream as cst
+from rag_arc_tpu_torch.ops import fused_mips as fm
 from rag_arc_tpu_torch.ops import subtile_max as sm
 from rag_arc_tpu_torch.ops import subtile_max_i8 as smi8
+from rag_arc_tpu_torch.ops import subtile_max_piped as smp
 from rag_arc_tpu_torch.ops.two_level import quantize_rows_blocked, two_level_topk
 from rag_arc_tpu_torch.ops.topk import masked_topk
 
@@ -449,3 +453,119 @@ def test_qwen3_kernel_path_close_to_einsum(cuda, dtype):
     # bf16: the two paths round at different points (models/qwen3.py)
     atol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+# -- the kernel probe's kernels: piped producer, fused top-k, corpus stream ------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 7, 70, 130])
+@pytest.mark.parametrize("n,d,g", [(4096, 64, 16), (4096, 64, 128), (1056, 96, 16),
+                                   (1056, 96, 32)])  # 1056: a ragged last tile
+def test_piped_matches_plain(cuda, dtype, b, n, d, g):
+    q, x, valid = _inputs(n, d, b, dtype, cuda)
+    before = smp.launches
+    got = smp.subtile_max_piped(q, x, valid, g)
+    torch.cuda.synchronize()
+    assert smp.launches == before + 1
+    torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, g), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b", [1, 70])
+@pytest.mark.parametrize("n,d", [(4096, 64), (2048, 1040)])
+@pytest.mark.parametrize("g", [16, 32])
+def test_piped_int8_equals_plain(cuda, b, n, d, g):
+    rng = np.random.default_rng(b + d)
+    codes = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(cuda)
+    q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(np.repeat(rng.random(n // 32).astype(np.float32), 32)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) > 0.05).to(cuda)
+    valid[64:96] = False
+    got = smp.subtile_max_piped(q, codes, valid, g, scale=scale)
+    torch.cuda.synchronize()
+    want = smi8.subtile_max_i8_plain(q, codes, scale, valid, g, block_scales=True)
+    assert torch.equal(got, want)
+
+
+def test_piped_g256_and_refusals(cuda):
+    q, x, valid = _inputs(4096, 64, 9, torch.bfloat16, cuda)
+    got = smp.subtile_max_piped(q, x, valid, 256)
+    torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, 256), atol=1e-4, rtol=0)
+    q, x, valid = _inputs(1024, 100, 4, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        smp.subtile_max_piped(q, x, valid, 16)
+
+
+@pytest.mark.parametrize("producer", ["stream", "stream_piped", "scan"])
+def test_two_level_producers_on_card(cuda, producer):
+    q, x, valid = _inputs(8192, 64, 33, torch.bfloat16, cuda, seed=2)
+    s1, p1 = two_level_topk(q.float(), x, valid, 10, producer=producer)
+    s2, p2 = masked_topk(q.float(), x, valid, 10)
+    torch.testing.assert_close(p1, p2, atol=0, rtol=0)
+    torch.testing.assert_close(s1, s2, atol=1e-5, rtol=0)
+
+
+def _int_inputs(n, d, b, device, seed=0):
+    # small integers: every dot is exact in bf16 products and f32 sums, in
+    # any order, so kernel and plain version agree bit for bit, ties too
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 3, (n, d)).astype(np.float32)
+    q = rng.integers(-2, 3, (b, d)).astype(np.float32)
+    valid = rng.random(n) > 0.05
+    sq = (x * x).sum(1).astype(np.float32)
+    return (torch.from_numpy(q).to(device), torch.from_numpy(x).to(device, torch.bfloat16),
+            torch.from_numpy(valid).to(device), torch.from_numpy(sq).to(device))
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("skip,packed", [(False, False), (True, False), (True, True),
+                                         (False, True)])
+@pytest.mark.parametrize("b,k", [(5, 10), (130, 4), (3, 128)])
+def test_fused_equals_plain_on_integer_data(cuda, metric, skip, packed, b, k):
+    q, x, valid, sq = _int_inputs(8192, 32, b, cuda)
+    before = fm.launches
+    got_s, got_p = fm.fused_mips_topk(q, x, valid, sq, k, tile_n=1024, metric=metric,
+                                      skip_tiles=skip, packed=packed)
+    torch.cuda.synchronize()
+    assert fm.launches == before + 1
+    want_s, want_p = fm.fused_mips_topk_plain(q, x, valid, sq, k, 1024, metric, skip, packed)
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+def test_fused_matches_plain(cuda, dtype, metric):
+    q, x, valid = _inputs(8192, 64, 70, dtype, cuda, seed=3)
+    sq = (x.float() * x.float()).sum(1)
+    got_s, got_p = fm.fused_mips_topk(q.float() * 2, x, valid, sq, 10, tile_n=2048,
+                                      metric=metric, skip_tiles=True)
+    want_s, want_p = fm.fused_mips_topk_plain(q.float() * 2, x, valid, sq, 10, 2048, metric,
+                                              True, False)
+    assert torch.equal(got_p, want_p)
+    torch.testing.assert_close(got_s, want_s, atol=1e-5, rtol=0)
+
+
+def test_fused_fewer_live_rows_than_k_and_refusals(cuda):
+    q, x, valid, sq = _int_inputs(4096, 32, 4, cuda, seed=1)
+    valid[:] = False
+    valid[[5, 2000, 4000]] = True
+    s, p = fm.fused_mips_topk(q, x, valid, sq, 10, tile_n=1024, metric="ip")
+    assert (p[:, 3:] == -1).all() and (s[:, 3:] == fm.NEG).all()
+    assert set(p[0, :3].tolist()) == {5, 2000, 4000}
+    with pytest.raises(ValueError, match="k must be"):
+        fm.fused_mips_topk(q, x, valid, sq, fm.MAX_K + 1, tile_n=1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("n", [4096, 1003, 7])
+def test_corpus_stream_equals_plain(cuda, dtype, n):
+    rng = np.random.default_rng(n)
+    if dtype == torch.int8:
+        x = torch.from_numpy(rng.integers(-127, 128, (n, 48)).astype(np.int8)).to(cuda)
+    else:
+        x = torch.from_numpy(rng.standard_normal((n, 48)).astype(np.float32)).to(cuda, dtype)
+    before = cst.launches
+    got = cst.corpus_stream(x)
+    torch.cuda.synchronize()
+    assert cst.launches == before + 1
+    assert torch.equal(got, cst.corpus_stream_plain(x))

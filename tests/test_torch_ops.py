@@ -17,8 +17,13 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rag_arc_tpu.ops import topk as jtopk
 from rag_arc_tpu.ops import two_level as jtl
-from rag_arc_tpu.ops.two_level_stream import subtile_max_stream
+from rag_arc_tpu.ops.two_level_stream import (
+    subtile_max_stream,
+    two_level_topk_certified,
+    two_level_topk_certified_i8,
+)
 from rag_arc_tpu_torch.ops import subtile_max as sm
+from rag_arc_tpu_torch.ops import subtile_max_piped as smp
 from rag_arc_tpu_torch.ops import topk as ttopk
 from rag_arc_tpu_torch.ops import two_level as ttl
 
@@ -115,6 +120,144 @@ def test_wrapper_refuses(bad, match):
     tq = torch.from_numpy(q).to(bad.get("qdtype", torch.float32))
     with pytest.raises(ValueError, match=match):
         sm.subtile_max(tq, torch.from_numpy(x), torch.from_numpy(valid), bad.get("g", 16))
+
+
+# -- the producer switch: piped and scan producers ------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("g", [16, 32])
+def test_piped_producer_matches_tpu_piped_kernel(dtype, g):
+    # the TPU kernel is maskless: every row live here
+    jdt, tdt = DTYPES[dtype]
+    q, x, valid = _data(11, dead=False)
+    want = np.asarray(subtile_max_stream(jnp.asarray(q, jdt), jnp.asarray(x, jdt),
+                                         jnp.asarray(valid), g=g, tile_n=1024,
+                                         interpret=True, pipelined=True))
+    got = smp.subtile_max_piped(torch.from_numpy(q).to(tdt), torch.from_numpy(x).to(tdt),
+                                torch.from_numpy(valid), g).numpy()
+    np.testing.assert_allclose(got, want.T, rtol=0, atol=1e-5)
+
+
+def _i8_data(seed, n=4096, d=64, b=8):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    q = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    scale = np.repeat(rng.random(n // 32).astype(np.float32) + 0.1, 32)
+    return q, codes, scale
+
+
+@pytest.mark.parametrize("g", [16, 32])
+def test_piped_producer_int8_matches_tpu_piped_kernel(g):
+    # the TPU kernel's int8 mode gives raw int32 maxima; the port's block
+    # mode gives them times the sub-tile's scale: exactly equal
+    q, codes, scale = _i8_data(12)
+    raw = np.asarray(subtile_max_stream(jnp.asarray(q), jnp.asarray(codes),
+                                        jnp.ones(len(codes), bool), g=g, tile_n=1024,
+                                        interpret=True, pipelined=True))
+    got = smp.subtile_max_piped(torch.from_numpy(q), torch.from_numpy(codes),
+                                torch.ones(len(codes), dtype=torch.bool), g,
+                                scale=torch.from_numpy(scale)).numpy()
+    np.testing.assert_array_equal(got, raw.T * scale[::g][None, :])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_scan_producer_matches_jax_scan(dtype):
+    if dtype == "int8":
+        q, x, scale = _i8_data(13)
+        jq, jx = jnp.asarray(q), jnp.asarray(x)
+        tq, tx = torch.from_numpy(q), torch.from_numpy(x)
+        ones = np.ones(len(x), np.float32)  # scale 1: the raw int32 maxima
+        got = ttl.subtile_max_scan(tq, tx, torch.ones(len(x), dtype=torch.bool), 16, 1024,
+                                   scale=torch.from_numpy(ones)).numpy()
+        want = np.asarray(jtl.subtile_max_scan(jq, jx, g=16, tile_n=1024))
+        np.testing.assert_array_equal(got, want.T)
+        return
+    jdt, tdt = DTYPES[dtype]
+    q, x, valid = _data(14, dead=False)
+    want = np.asarray(jtl.subtile_max_scan(jnp.asarray(q, jdt), jnp.asarray(x, jdt),
+                                           g=16, tile_n=1024))
+    got = ttl.subtile_max_scan(torch.from_numpy(q).to(tdt), torch.from_numpy(x).to(tdt),
+                               torch.from_numpy(valid), 16, 1024).numpy()
+    np.testing.assert_allclose(got, want.T, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("producer", ["stream", "stream_piped", "scan"])
+def test_two_level_producers_match_jax_certified(producer):
+    q, x, valid = _data(15)  # dead rows zeroed: the certified path's rule
+    q = q * 2.0
+    js, jp, _ = two_level_topk_certified(
+        jnp.asarray(q), jnp.asarray(x), jnp.asarray(valid), jnp.zeros(len(x)), k=10,
+        g=16, tile_n=1024, interpret=True, producer=producer)
+    ts, tp = ttl.two_level_topk(torch.from_numpy(q), torch.from_numpy(x),
+                                torch.from_numpy(valid), 10, g=16, producer=producer,
+                                tile_n=1024)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("producer", ["stream", "stream_piped", "scan"])
+def test_two_level_i8_producers_match_jax_certified(producer):
+    q, x, valid = _data(16)
+    codes, scales = ttl.quantize_rows_blocked(x, 32)
+    codes[~valid] = 0
+    js, jp, _ = two_level_topk_certified_i8(
+        jnp.asarray(q), jnp.asarray(codes), jnp.asarray(scales), jnp.asarray(valid),
+        k=10, g=16, tile_n=1024, interpret=True, producer=producer, block_scales=True)
+    ts, tp = ttl.two_level_topk_i8(torch.from_numpy(q), torch.from_numpy(codes),
+                                   torch.from_numpy(scales), torch.from_numpy(valid), 10,
+                                   g=16, block_scales=True, producer=producer, tile_n=1024)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_two_level_g256_matches_jax():
+    # the probe's g = 256, served from g = 128 maxima and a pairwise max
+    q, x, valid = _data(17)
+    js, jp = jtl.two_level_topk(jnp.asarray(q), jnp.asarray(x), jnp.asarray(valid),
+                                jnp.zeros(len(x)), k=10, g=256, tile_n=1024,
+                                interpret=True)
+    ts, tp = ttl.two_level_topk(torch.from_numpy(q), torch.from_numpy(x),
+                                torch.from_numpy(valid), 10, g=256)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-5)
+    sub = sm.subtile_max_plain(torch.from_numpy(q), torch.from_numpy(x),
+                               torch.from_numpy(valid), 128)
+    np.testing.assert_array_equal(
+        sm.widen_g(sub, 256, 128).numpy(),
+        sm.subtile_max_plain(torch.from_numpy(q), torch.from_numpy(x),
+                             torch.from_numpy(valid), 256).numpy())
+
+
+def test_producer_switch_refuses():
+    q, x, valid = (torch.from_numpy(a) for a in _data(18, n=1024))
+    with pytest.raises(ValueError, match="unknown producer"):
+        ttl.two_level_topk(q, x, valid, 4, producer="dma")
+    with pytest.raises(ValueError, match="l2"):
+        ttl.two_level_topk(q, x, valid, 4, metric="l2", sqnorm=(x * x).sum(1),
+                           producer="stream_piped")
+    with pytest.raises(ValueError, match="block scales"):
+        ttl.two_level_topk_i8(q, x.to(torch.int8), torch.ones(1024), valid, 4,
+                              producer="stream_piped")
+    before = smp.launches
+    smp.subtile_max_piped(q, x, valid, 16)
+    assert smp.launches == before  # the CPU takes the plain version
+
+
+def test_quantize_rows_blocked_tensor_matches_jax():
+    # a tensor is quantized where it lies and gives tensors; a read-only
+    # array goes through the same body and gives arrays
+    x = np.random.default_rng(19).standard_normal((1000, 48)).astype(np.float32)
+    jc, js = jtl.quantize_rows_blocked(x, 32)
+    tc, ts = ttl.quantize_rows_blocked(torch.from_numpy(x), 32)
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    np.testing.assert_array_equal(ts.numpy(), js)
+    x.setflags(write=False)
+    nc, ns = ttl.quantize_rows_blocked(x, 32)
+    assert isinstance(nc, np.ndarray)
+    np.testing.assert_array_equal(nc, jc)
+    np.testing.assert_array_equal(ns, js)
 
 
 # -- select + rescore -------------------------------------------------------
