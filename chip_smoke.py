@@ -14,14 +14,21 @@ Phases, each printing its own lines and times:
      turns at B = 512, N = 2M:
      - ``subtile_max``: bf16 B in {1, 7, 128, 512}, f32 B = 64;
      - its l2 mode: bf16 B in {7, 512}, f32 B = 64;
+     - the bf16 kernel's edges: B = 130, N off a 128-row tile, g in
+       {16, 128, 256}, d = 100 and a view off a 16-byte boundary (the
+       wrapper's copies), whole dead sub-tiles; and ``torch.matmul(q, x.T)``
+       at B = 512, N = 2M as a second yardstick (the GEMM alone);
      - ``subtile_max_i8``: block scales B in {1, 7, 128, 512}, per-row
        scales B = 64, exactly equal; at N = 2M both scale modes;
      - ``rope_prep`` at the reranker shape (B = 64, L = 512, nh/nkv 16/8,
        D = 128, bf16, left-padded positions, norm folded in), ragged,
-       nh = nkv, D = 64 and f32 cases; timed in turns at the reranker shape;
-     - ``flash_attention`` at B = 64, L = 512, H = 16, D = 128 bf16 with
-       random left-pad lengths, every row compared (pads included), and
-       L in {64, 200}, D = 64, f32; timed in turns at the reranker shape;
+       nh = nkv, D = 64 and f32 cases, with and without ``repeat_kv``;
+       timed in turns at the reranker shape, both ways;
+     - ``flash_attention`` at B = 64, L = 512, H = 16 (KV heads 16 and 8),
+       D = 128 bf16 with random left-pad lengths, every row compared (pads
+       included), and L in {64, 130, 200, 300}, D = 64, KV heads shared by
+       2 or 3 query heads, f32, and ``out=`` a (B, L, H, D) buffer; timed
+       in turns at the reranker shape (16/8 heads) beside SDPA;
   4. index: a 2,000,000 x 768 corpus, its queries and their f32 exact
      top-10 oracle, shared by three indexes, each searched in batches of
      512 queries (k = 10) with ids checked against the plain producer's:
@@ -43,9 +50,10 @@ Phases, each printing its own lines and times:
   6. rerank model: ``Qwen3LM`` at Qwen3-0.6B widths (28 x 1024, 16/8 heads
      of 128, vocab 151,936), bf16, seeded N(0, 0.02) weights; ``last_logits``
      on B = 64 x L = 512 random ids timed (pairs/s, ms per 50-candidate
-     query, MFU against 989 TFLOP/s), one layer's stage times, the kernel
-     path held against the einsum path on the same weights, and an f32
-     check at full width and 2 layers;
+     query, MFU against 989 TFLOP/s), the attention calls checked (K/V
+     unrepeated, attention written in place), one layer's stage times, the
+     kernel path held against the einsum path on the same weights, and an
+     f32 check at full width and 2 layers;
   7. retrieve -> rerank: the top 50 of the bf16 e2e store for 8 query texts
      through ``CrossEncoderReranker.from_causal_lm(qwen3, ...)
      .rerank_batch(k=10)``, checked (candidates, sorted, scores in [0, 1],
@@ -78,6 +86,13 @@ DIM = 768
 KERNEL_N = 262_144
 KERNEL_CASES = [("bf16", 1), ("bf16", 7), ("bf16", 128), ("bf16", 512), ("f32", 64)]
 L2_CASES = [("bf16", 7), ("bf16", 512), ("f32", 64)]
+# the wgmma kernel's edges: (B, N, d, g, storage offset, l2); a ragged
+# 256-query block (B = 130), N off a 128-row tile, g up to 256 (served
+# from g = 128), d = 100 (the wrapper's zero-padding copy) and a view off
+# a 16-byte boundary (its aligning copy); 256 rows dead in each case
+EDGE_CASES = [(130, 262_096, 768, 16, 0, False), (130, 262_096, 768, 16, 0, True),
+              (512, 262_144, 768, 128, 0, False), (64, 262_144, 768, 256, 0, True),
+              (7, 65_536, 100, 16, 0, False), (33, 65_536, 768, 16, 3, False)]
 I8_CASES = [(True, 1), (True, 7), (True, 128), (True, 512), (False, 64)]  # (block scales, B)
 TIMING_N = 2_000_000
 CORPUS_N = 2_000_000
@@ -123,14 +138,18 @@ PROBE_CONFIGS = [  # the probe's default sweep comes first
     {"kind": "p1_stream", "tile_n": 2048, "g": 16},
     {"kind": "p1_stream", "tile_n": 2048, "g": 16, "pipelined": True},
 ]
-ROPE_CASES = [  # (B, L, nh, nkv, D, dtype)
-    (RERANK_B, RERANK_L, 16, 8, 128, "bf16"), (3, 77, 16, 8, 128, "bf16"),
-    (4, 128, 8, 8, 128, "bf16"), (4, 96, 8, 4, 64, "bf16"), (4, 100, 16, 8, 128, "f32"),
+ROPE_CASES = [  # (B, L, nh, nkv, D, dtype, repeat_kv)
+    (RERANK_B, RERANK_L, 16, 8, 128, "bf16", True),
+    (RERANK_B, RERANK_L, 16, 8, 128, "bf16", False),
+    (3, 77, 16, 8, 128, "bf16", True), (3, 77, 16, 8, 128, "bf16", False),
+    (4, 128, 8, 8, 128, "bf16", True), (4, 96, 8, 4, 64, "bf16", False),
+    (4, 100, 16, 8, 128, "f32", True), (4, 100, 16, 8, 128, "f32", False),
 ]
-FLASH_CASES = [  # (B, H, L, D, dtype), random left-pad lengths
-    (RERANK_B, 16, RERANK_L, 128, "bf16"), (8, 16, 64, 128, "bf16"),
-    (8, 16, 200, 128, "bf16"), (4, 8, 300, 64, "bf16"), (2, 4, 160, 128, "f32"),
-    (2, 4, 96, 64, "f32"),
+FLASH_CASES = [  # (B, H, HKV, L, D, dtype), random left-pad lengths
+    (RERANK_B, 16, 16, RERANK_L, 128, "bf16"), (RERANK_B, 16, 8, RERANK_L, 128, "bf16"),
+    (8, 16, 16, 64, 128, "bf16"), (8, 16, 16, 200, 128, "bf16"), (4, 8, 8, 300, 64, "bf16"),
+    (4, 8, 4, 300, 64, "bf16"), (6, 12, 4, 130, 128, "bf16"), (2, 4, 4, 160, 128, "f32"),
+    (2, 4, 2, 160, 128, "f32"), (2, 4, 4, 96, 64, "f32"),
 ]
 # (atol, rtol). rope_prep runs the plain version's f32 arithmetic up to FMA
 # contraction and rounds once: one bf16 ulp (2^-7 relative at most), f32
@@ -295,6 +314,32 @@ def phase_kernel(torch, sm, dev) -> tuple[dict, dict]:
         check(err <= TOL, f"l2 kernel disagrees with its plain version: {err} > {TOL}")
     del x, valid, q, sq, got
 
+    for b, n, d, g, offset, l2 in EDGE_CASES:
+        x = unit_rows(gen, n, d, torch.bfloat16, dev)
+        valid = torch.rand(n, generator=gen, device=dev) > 0.03
+        valid[4096 : 4096 + 256] = False  # whole sub-tiles dead, at every g
+        x[~valid] = 0
+        q = unit_rows(gen, b, d, torch.bfloat16, dev)
+        sq = (x.float() * x.float()).sum(1) if l2 else None
+        xv, qv = x, q
+        if offset:  # contiguous views off a 16-byte boundary
+            xv = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+            qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+        got = sm.subtile_max(qv, xv, valid, g, sqnorm=sq)
+        torch.cuda.synchronize()
+        want = sm.subtile_max_plain(q, x, valid, g, sqnorm=sq)
+        err = float((got - want).abs().max())
+        dead = bool((got[:, 4096 // g : (4096 + 256) // g] == sm.NEG).all())
+        if l2:
+            l2_err = max(l2_err, err)
+        else:
+            max_err = max(max_err, err)
+        report(f"{'l2 ' if l2 else ''}bf16 B={b} N={n} d={d} g={g} storage offset {offset}: "
+               f"max|kernel - plain| = {err:.3e} (atol {TOL:g}); dead sub-tiles NEG: {dead}")
+        check(got.shape == (b, n // g) and err <= TOL and dead,
+              f"kernel disagrees with its plain version at B={b} N={n} d={d} g={g}: {err}")
+    del x, valid, q, sq, got, want, xv, qv
+
     x = unit_rows(gen, TIMING_N, DIM, torch.bfloat16, dev)
     valid = torch.rand(TIMING_N, generator=gen, device=dev) > 0.03
     x[~valid] = 0
@@ -326,11 +371,21 @@ def phase_kernel(torch, sm, dev) -> tuple[dict, dict]:
     del got, want
     l2 = in_turns(kernel, plain, f"l2 bf16 B={BATCH} N={n} d={DIM} g={G}", flops,
                   "TFLOP/s", n * DIM * 2)
-    del x, valid, q, sq
+    del sq
+    # what the library reaches on the same products: not one call computing
+    # this function (it writes all B x N scores), so not library_ms
+    gemm = lambda: torch.matmul(q, x.T)  # noqa: E731
+    gemm()
+    torch.cuda.synchronize()
+    gemm_ms = cuda_ms(gemm, 10)
+    report(f"GEMM alone, writes the scores: torch.matmul(q, x.T) bf16 B={BATCH} N={n} "
+           f"d={DIM} {gemm_ms:.3f} ms (CUDA events, mean of 10), {flops / gemm_ms / 1e9:.1f} "
+           f"TFLOP/s; the kernel {ip['ms']:.3f} ms")
+    del x, valid, q
     torch.cuda.empty_cache()
     nbytes = n * DIM * 2 + n + BATCH * DIM * 2 + 4 * BATCH * (n // G)
     return ({"max_abs_err": max_err, **ip, **bound(flops, H100_BF16_PEAK, nbytes),
-             "library_ms": None},
+             "library_ms": None, "gemm_alone_ms": gemm_ms},
             {"max_abs_err": l2_err, **l2,
              **bound(flops, H100_BF16_PEAK, nbytes + 4 * n + 4 * BATCH), "library_ms": None})
 
@@ -440,10 +495,13 @@ def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
     got, want = kernel(), plain()
     err = float((got - want).abs().max())
     max_err = max(max_err, err)
-    same = bool(torch.equal(got, stream()))
+    # the two kernels sum in another order (WMMA against wgmma): equal
+    # within TOL, like each against the plain version
+    gap = float((got - stream()).abs().max())
     report(f"piped bf16 B={BATCH} N={n}: max|kernel - plain| = {err:.3e} (atol {TOL:g}); "
-           f"equal to subtile_max.cu's output: {same}")
+           f"max|piped - subtile_max.cu| = {gap:.3e} (atol {TOL:g})")
     check(err <= TOL, f"subtile_max_piped disagrees with its plain version at N={n}: {err}")
+    check(gap <= TOL, f"subtile_max_piped and subtile_max.cu disagree at N={n}: {gap}")
     del got, want
     flops = 2.0 * BATCH * n * DIM
     timed = in_turns(kernel, plain, f"piped bf16 B={BATCH} N={n} d={DIM} g={G}", flops,
@@ -620,19 +678,24 @@ def phase_probe(torch, smp, fm, cst, dev) -> dict:
         if cfg["kind"] == "stream":
             stream_top[cfg["producer"]] = top
     launches = {name: c.read() for name, c in counters.items()}
-    # the two kernels give bit-equal sub-tile maxima, so equal ids; the
-    # scan's f32 matmul sums in another order, so its ids may differ from
-    # theirs only between candidates tied with the k-th score
-    (s_ref, ids_ref), (_, ids_piped) = stream_top["stream"], stream_top["stream_piped"]
-    same = bool(np.array_equal(ids_ref, ids_piped))
-    s_scan, ids_scan = stream_top["scan"]
-    rows = np.flatnonzero((ids_scan != ids_ref).any(axis=1))
-    untied = 0
-    for i in rows:
-        score = dict(zip(ids_ref[i].tolist() + ids_scan[i].tolist(),
-                         s_ref[i].tolist() + s_scan[i].tolist()))
-        diff = set(ids_ref[i].tolist()) ^ set(ids_scan[i].tolist())
-        untied += any(abs(score[p] - float(s_ref[i, -1])) > TOL for p in diff)
+    # the three producers sum in three orders (wgmma, WMMA, the scan's f32
+    # matmul), so their ids may differ from the stream kernel's only
+    # between candidates tied with the k-th score within TOL
+    (s_ref, ids_ref) = stream_top["stream"]
+
+    def untied_rows(other):
+        s_o, ids_o = other
+        rows = np.flatnonzero((ids_o != ids_ref).any(axis=1))
+        untied = 0
+        for i in rows:
+            score = dict(zip(ids_ref[i].tolist() + ids_o[i].tolist(),
+                             s_ref[i].tolist() + s_o[i].tolist()))
+            diff = set(ids_ref[i].tolist()) ^ set(ids_o[i].tolist())
+            untied += any(abs(score[p] - float(s_ref[i, -1])) > TOL for p in diff)
+        return rows, untied
+
+    piped_rows, piped_untied = untied_rows(stream_top["stream_piped"])
+    rows, untied = untied_rows(stream_top["scan"])
     # pass 1 itself, on the same batch: the scan's maxima against
     # subtile_max.cu's, so the relaxed id check rests on a direct one
     cfg = PROBE_CONFIGS[0]
@@ -643,12 +706,15 @@ def phase_probe(torch, smp, fm, cst, dev) -> dict:
     gap = float(gaps.max())
     gap_rows = float(gaps[torch.as_tensor(rows, device=dev)].max()) if len(rows) else 0.0
     del p1, gaps
-    report(f"probe: stream and stream_piped ids equal: {same}; scan ids differ in "
+    report(f"probe: stream_piped ids differ from stream's in {len(piped_rows)} of "
+           f"{len(ids_ref)} rows, beyond a tie at the k-th score (atol {TOL:g}) in "
+           f"{piped_untied}; scan ids differ in "
            f"{len(rows)} of {len(ids_ref)} rows, beyond a tie at the k-th score (atol "
            f"{TOL:g}) in {untied}; pass 1 on that batch, max|scan - subtile_max.cu| = "
            f"{gap:.3e} (atol {TOL:g}), {gap_rows:.3e} on the rows whose ids differ; "
            f"kernel launches {launches}")
-    check(same, "the stream and stream_piped producers' ids differ")
+    check(piped_untied == 0,
+          "the stream_piped producer's ids differ beyond ties at the k-th score")
     check(untied == 0, "the scan producer's ids differ beyond ties at the k-th score")
     check(gap <= TOL, f"the scan's pass-1 maxima disagree with subtile_max.cu's: {gap}")
     for name, n in launches.items():
@@ -1098,92 +1164,119 @@ def left_pad_mask(torch, gen, b, l, dev):
 
 
 def phase_rope(torch, rp, dev) -> dict:
-    phase("kernel against its plain version: rope_prep")
+    phase("kernel against its plain version: rope_prep (KV heads repeated, and written once)")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     max_err = 0.0
-    for b, l, nh, nkv, d, dt_name in ROPE_CASES:
+    for b, l, nh, nkv, d, dt_name, repeat in ROPE_CASES:
         dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
         q, k, v, cos, sin, qs, ks = rope_inputs(torch, gen, b, l, nh, nkv, d, dtype, dev)
-        got = rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d)
+        got = rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d, repeat_kv=repeat)
         torch.cuda.synchronize()
         want = rp.rope_prep_plain(q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d),
-                                  v.reshape(b, l, nkv, d), cos, sin, qs, ks)
+                                  v.reshape(b, l, nkv, d), cos, sin, qs, ks,
+                                  repeat_kv=repeat)
         atol, rtol = ROPE_TOL[dt_name]
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         ok = all(bool(((g.float() - w.float()).abs() <= atol + rtol * w.float().abs()).all())
                  for g, w in zip(got, want))
         v_exact = bool(torch.equal(got[2], want[2]))
         max_err = max(max_err, err)
-        report(f"{dt_name} B={b} L={l} nh/nkv={nh}/{nkv} D={d}, "
+        kv_heads = nh if repeat else nkv
+        report(f"{dt_name} B={b} L={l} nh/nkv={nh}/{nkv} D={d} repeat_kv={repeat}, "
                f"left-padded positions, norm folded: max|kernel - plain| = {err:.3e} "
                f"(bound {atol:g} + {rtol:g}|plain|), V exact: {v_exact}")
-        check(all(g.shape == (b, nh, l, d) for g in got), "rope_prep output shape")
+        check(got[0].shape == (b, nh, l, d)
+              and got[1].shape == got[2].shape == (b, kv_heads, l, d), "rope_prep output shape")
         check(ok and v_exact, f"rope_prep disagrees with its plain version: {err}")
     del q, k, v, got, want
 
     b, l, nh, nkv, d = RERANK_B, RERANK_L, 16, 8, 128
     q, k, v, cos, sin, qs, ks = rope_inputs(torch, gen, b, l, nh, nkv, d, torch.bfloat16, dev)
-    kernel = lambda: rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d)  # noqa: E731
-    plain = lambda: rp.rope_prep_plain(  # noqa: E731
-        q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d), v.reshape(b, l, nkv, d),
-        cos, sin, qs, ks)
-    # bytes: q, k, v and the f32 tables read once; three (B, NH, L, D) outputs
+    # bytes: q, k, v and the f32 tables read once; the outputs written once
     read = 2 * b * l * (nh + 2 * nkv) * d + 2 * 4 * b * l * d
-    moved = read + 3 * 2 * b * nh * l * d
-    timed = in_turns(kernel, plain, f"rope_prep bf16 B={b} L={l} nh/nkv={nh}/{nkv} D={d}",
-                     moved, "TB/s moved (reads + writes)", read, "read")
+    out = {}
+    for repeat in (True, False):  # the model's path last: its line in the kernels JSON
+        kernel = lambda: rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv,  # noqa: E731
+                                      d=d, repeat_kv=repeat)
+        plain = lambda: rp.rope_prep_plain(  # noqa: E731
+            q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d), v.reshape(b, l, nkv, d),
+            cos, sin, qs, ks, repeat_kv=repeat)
+        moved = read + 2 * b * l * d * (nh + 2 * (nh if repeat else nkv))
+        timed = in_turns(kernel, plain, f"rope_prep bf16 B={b} L={l} nh/nkv={nh}/{nkv} D={d} "
+                         f"repeat_kv={repeat}", moved, "TB/s moved (reads + writes)", read,
+                         "read")
+        out[repeat] = {**timed, **bound(0.0, H100_BF16_PEAK, moved)}
     del q, k, v, cos, sin
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, **timed, **bound(0.0, H100_BF16_PEAK, moved),
-            "library_ms": None}
+    return {"max_abs_err": max_err, **out[False], "library_ms": None,
+            "repeat_kv_ms": out[True]["ms"], "repeat_kv_bound_ms": out[True]["bound_ms"]}
 
 
-def attn_inputs(torch, gen, b, h, l, d, dtype, dev):
-    q, k, v = (torch.randn(b, h, l, d, generator=gen, device=dev).to(dtype) for _ in range(3))
+def attn_inputs(torch, gen, b, h, hkv, l, d, dtype, dev):
+    q = torch.randn(b, h, l, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, hkv, l, d, generator=gen, device=dev).to(dtype) for _ in range(2))
     seg = left_pad_mask(torch, gen, b, l, dev).to(torch.int32)
     return q, k, v, seg
 
 
+def flash_check(torch, fa, got, q, k, v, seg, what: str) -> float:
+    """Holds one flash output against the plain version, every row."""
+    d = q.shape[-1]
+    want = fa.attention_plain(q, k, v, seg, causal=True, sm_scale=d ** -0.5)
+    atol, rtol = FLASH_TOL["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    finite = bool(torch.isfinite(got).all())
+    report(f"{what}, left-padded, every row: max|kernel - plain| = {err:.3e} (bound {atol:g} + "
+           f"{rtol:g}|plain|), finite: {finite}, pad rows {int((seg == 0).sum())}")
+    check(finite and ok, f"flash_attention disagrees with its plain version ({what}): {err}")
+    return err
+
+
 def phase_flash(torch, fa, dev) -> dict:
-    phase("kernel against its plain version: flash_attention (causal, segment ids)")
+    phase("kernel against its plain version: flash_attention (causal, segment ids, GQA)")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     max_err = 0.0
-    for b, h, l, d, dt_name in FLASH_CASES:
+    for b, h, hkv, l, d, dt_name in FLASH_CASES:
         dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
-        q, k, v, seg = attn_inputs(torch, gen, b, h, l, d, dtype, dev)
+        q, k, v, seg = attn_inputs(torch, gen, b, h, hkv, l, d, dtype, dev)
         got = fa.flash_attention(q, k, v, seg)
         torch.cuda.synchronize()
-        want = fa.attention_plain(q, k, v, seg, causal=True, sm_scale=d ** -0.5)
-        atol, rtol = FLASH_TOL[dt_name]
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        ok = bool((diff <= atol + rtol * want.float().abs()).all())
-        finite = bool(torch.isfinite(got).all())
-        max_err = max(max_err, err)
-        report(f"{dt_name} B={b} H={h} L={l} D={d}, left-padded, "
-               f"every row: max|kernel - plain| = {err:.3e} (bound {atol:g} + "
-               f"{rtol:g}|plain|), finite: {finite}, pad rows "
-               f"{int((seg == 0).sum())}")
-        check(finite and ok, f"flash_attention disagrees with its plain version: {err}")
-        del got, want, diff
+        max_err = max(max_err, flash_check(torch, fa, got, q, k, v, seg,
+                                           f"{dt_name} B={b} H/HKV={h}/{hkv} L={l} D={d}"))
+        del got
 
-    b, h, l, d = RERANK_B, 16, RERANK_L, 128
-    q, k, v, seg = attn_inputs(torch, gen, b, h, l, d, torch.bfloat16, dev)
+    # out=: a (B, L, H, D) buffer seen as (B, H, L, D), written in place
+    b, h, hkv, l, d = 8, 16, 8, 200, 128
+    q, k, v, seg = attn_inputs(torch, gen, b, h, hkv, l, d, torch.bfloat16, dev)
+    buf = torch.full((b, l, h, d), float("nan"), dtype=torch.bfloat16, device=dev)
+    got = fa.flash_attention(q, k, v, seg, out=buf.transpose(1, 2))
+    torch.cuda.synchronize()
+    check(got.data_ptr() == buf.data_ptr(), "flash_attention(out=) returned another tensor")
+    max_err = max(max_err, flash_check(torch, fa, buf.transpose(1, 2), q, k, v, seg,
+                                       f"bf16 B={b} H/HKV={h}/{hkv} L={l} D={d} out=(B,L,H,D)"))
+    del q, k, v, seg, buf, got
+
+    b, h, hkv, l, d = RERANK_B, 16, 8, RERANK_L, 128
+    q, k, v, seg = attn_inputs(torch, gen, b, h, hkv, l, d, torch.bfloat16, dev)
     kernel = lambda: fa.flash_attention(q, k, v, seg)  # noqa: E731
     plain = lambda: fa.attention_plain(q, k, v, seg, causal=True, sm_scale=d ** -0.5)  # noqa: E731
     flops = 4.0 * b * h * l * l * d / 2  # the causal half
-    nbytes = 4 * b * h * l * d * 2 + 4 * b * l
-    timed = in_turns(kernel, plain, f"flash_attention bf16 B={b} H={h} L={l} D={d} causal",
-                     flops, "TFLOP/s", nbytes, "of Q, K, V, out")
+    nbytes = (2 * h + 2 * hkv) * b * l * d * 2 + 4 * b * l  # Q, out; K, V once per KV head
+    timed = in_turns(kernel, plain, f"flash_attention bf16 B={b} H/HKV={h}/{hkv} L={l} D={d} "
+                     "causal", flops, "TFLOP/s", nbytes, "of Q, K, V, out")
     # the library yardstick: SDPA with the boolean mask causal & same
-    # segment; under the segment rule no row is fully masked
+    # segment, the KV heads shared (enable_gqa); under the segment rule no
+    # row is fully masked
     causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
     mask = causal[None, None] & (seg[:, None, :, None] == seg[:, None, None, :])
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, attn_mask=mask, scale=d ** -0.5)
+        q, k, v, attn_mask=mask, scale=d ** -0.5, enable_gqa=True)
     lib_err = float((lib().float() - kernel().float()).abs().max())
-    lib_ms = library_ms(lib, f"scaled_dot_product_attention bf16 B={b} H={h} L={l} D={d}, "
-                        f"causal & segment mask (max|library - kernel| {lib_err:.3e})")
+    lib_ms = library_ms(lib, f"scaled_dot_product_attention bf16 B={b} H/HKV={h}/{hkv} L={l} "
+                        f"D={d}, causal & segment mask, enable_gqa (max|library - kernel| "
+                        f"{lib_err:.3e})")
     del q, k, v, seg, mask
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, **timed, **bound(flops, H100_BF16_PEAK, nbytes),
@@ -1221,9 +1314,12 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
         qkv = _linear(attn.qkv_proj, h, dt)
         q, k, v = qkv[..., : nh * hd], qkv[..., nh * hd : (nh + nkv) * hd], qkv[..., (nh + nkv) * hd :]
         qn, ks = attn.q_norm.weight.float(), attn.k_norm.weight.float()
-        qr, kr, vr = rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh, nkv=nkv, d=hd)
-        out = fa.flash_attention(qr, kr, vr, ctx.seg, sm_scale=1.0 / math.sqrt(hd))
-        flat = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], nh * hd)
+        qr, kr, vr = rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh, nkv=nkv, d=hd,
+                                  repeat_kv=False)
+        buf = torch.empty((x.shape[0], x.shape[1], nh, hd), dtype=dt, device=x.device)
+        fa.flash_attention(qr, kr, vr, ctx.seg, sm_scale=1.0 / math.sqrt(hd),
+                           out=buf.transpose(1, 2))
+        flat = buf.view(x.shape[0], x.shape[1], nh * hd)
 
         def mlp():
             gu = _linear(layer.gateup_proj, layer.post_attention_layernorm(x), dt)
@@ -1234,10 +1330,9 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
             "input RMSNorm": lambda: layer.input_layernorm(x),
             "qkv projection": lambda: _linear(attn.qkv_proj, h, dt),
             "rope_prep": lambda: rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh,
-                                              nkv=nkv, d=hd),
-            "attention": lambda: fa.flash_attention(qr, kr, vr, ctx.seg,
-                                                    sm_scale=1.0 / math.sqrt(hd)),
-            "(B,H,L,D)->(B,L,H*D) copy": lambda: out.transpose(1, 2).reshape(flat.shape),
+                                              nkv=nkv, d=hd, repeat_kv=False),
+            "attention (into the (B,L,H,D) buffer)": lambda: fa.flash_attention(
+                qr, kr, vr, ctx.seg, sm_scale=1.0 / math.sqrt(hd), out=buf.transpose(1, 2)),
             "o_proj": lambda: _linear(attn.o_proj, flat, dt),
             "MLP (norm, gate|up, SiLU*up, down)": mlp,
             "whole layer": lambda: layer(x, ctx),
@@ -1251,6 +1346,39 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
             times[name] = cuda_ms(fn, 10)
     report(f"layer 0 of {cfg.num_hidden_layers}, B={ids.shape[0]} L={ids.shape[1]} bf16 "
            f"(CUDA events, mean of 10): " + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
+
+
+def model_attention_calls(torch, model, ids, mask) -> dict:
+    """One forward with the model's rope_prep and flash_attention calls
+    watched: the K heads each returns or reads, and whether attention
+    writes into a (B, L, H, D) buffer (no repeat, no copy)."""
+    from rag_arc_tpu_torch.models import qwen3 as tq
+
+    seen = {"rope": set(), "flash": set(), "out": set(), "n": 0}
+    rope, flash = tq.rope_prep, tq.flash_attention
+
+    def rope_watch(*a, **kw):
+        q, k, v = rope(*a, **kw)
+        seen["rope"].add((kw.get("repeat_kv", True), k.shape[1]))
+        return q, k, v
+
+    def flash_watch(q, k, v, seg, **kw):
+        o = kw.get("out")
+        seen["flash"].add(k.shape[1])
+        seen["out"].add(o is not None and o.transpose(1, 2).is_contiguous())
+        seen["n"] += 1
+        return flash(q, k, v, seg, **kw)
+
+    tq.rope_prep, tq.flash_attention = rope_watch, flash_watch
+    try:
+        model.last_logits(ids, mask)
+    finally:
+        tq.rope_prep, tq.flash_attention = rope, flash
+    (repeat, heads), = seen["rope"]
+    return {"rope_prep repeat_kv=False, K heads": heads if not repeat else -1,
+            "flash_attention K heads": min(seen["flash"]) if len(seen["flash"]) == 1 else -1,
+            "flash_attention out= a (B,L,H,D) buffer": seen["out"] == {True},
+            "layers": seen["n"]}
 
 
 def phase_rerank_model(torch, rp, fa, dev):
@@ -1279,7 +1407,7 @@ def phase_rerank_model(torch, rp, fa, dev):
     full = torch.ones_like(ids, dtype=torch.bool)
 
     with torch.inference_mode():
-        model.last_logits(ids, full)  # warm up
+        calls = model_attention_calls(torch, model, ids, full)  # also the warm-up
         torch.cuda.synchronize()
         Counter(rp).reset()
         Counter(fa).reset()
@@ -1296,6 +1424,12 @@ def phase_rerank_model(torch, rp, fa, dev):
            f"{per_fwd[0]}, flash_attention {per_fwd[1]}")
     check(per_fwd == (cfg.num_hidden_layers,) * 2,
           f"launches per forward {per_fwd}, want {cfg.num_hidden_layers} each")
+    report(f"the forward's attention calls: {calls}")
+    check(calls == {"rope_prep repeat_kv=False, K heads": cfg.num_key_value_heads,
+                    "flash_attention K heads": cfg.num_key_value_heads,
+                    "flash_attention out= a (B,L,H,D) buffer": True,
+                    "layers": cfg.num_hidden_layers},
+          "the forward repeats K/V or copies the attention output")
 
     mask = left_pad_mask(torch, gen, RERANK_B, RERANK_L, dev)
     qwen3_layer_times(torch, model, rp, fa, ids, mask)

@@ -2,12 +2,14 @@
 //
 // Replaces the library Pallas kernel that rag_arc_tpu/models/qwen3.py
 // calls on the TPU (jax.experimental.pallas.ops.tpu.flash_attention with
-// SegmentIds(q=seg, kv=seg), causal=True; qwen3.py:176-196). Inputs q, k,
-// v (B, H, L, D) of one dtype, contiguous; seg (B, L) int32. Query i
-// attends key j iff seg[i] == seg[j] and (when causal) j <= i. Output
-// (B, H, L, D) in the input dtype. The (B, H, L, L) scores never leave
-// the chip: at the reranker's shape (B=64, H=16, L=512) they would be
-// 1 GiB of f32 a layer, written and read back.
+// SegmentIds(q=seg, kv=seg), causal=True; qwen3.py:176-196). Inputs q
+// (B, H, L, D), k and v (B, HKV, L, D) with HKV dividing H, of one dtype,
+// contiguous; seg (B, L) int32. Query head h reads KV head h / (H / HKV)
+// directly: no GQA repeat in memory. Query i attends key j iff
+// seg[i] == seg[j] and (when causal) j <= i. The output (B, H, L, D) in
+// the input dtype is written through its strides (sB, sH, sL; the last
+// axis dense), so a (B, L, H, D) buffer seen as (B, H, L, D) takes it in
+// place. The (B, H, L, L) scores never leave the chip.
 //
 // Rounding points (those of the plain version, ops/flash_attention.py):
 // Q·Kᵀ accumulates in f32; the softmax runs in f32 with a running row max
@@ -15,29 +17,42 @@
 // to bf16 for P·V, which accumulates in f32; l sums the f32 probabilities;
 // out = acc / l, rounded once.
 //
-// What bounds it on an H100: at B=64, H=16, L=512, D=128 the causal half
-// is ~69 GFLOP against ~270 MB of Q, K, V and output, ~250 FLOP a byte,
-// near the card's ridge (~295 in bf16), so the tensor cores are the roof.
-// This first design is simple and right, not yet fast:
+// What bounds it on an H100: at B=64, H=16/HKV=8, L=512, D=128 the causal
+// half is ~69 GFLOP (0.07 ms at 989 TFLOP/s) against ~403 MB of Q, K, V
+// and output (0.12 ms at 3.35 TB/s): bytes, if each byte moves once.
 //
-// - one block per (b*h, 64-query tile), 4 warps of 16 query rows; tiles
-//   with more causal work are scheduled first;
-// - Q·Kᵀ and P·V on the tensor cores with mma.sync m16n8k16 bf16 -> f32,
-//   fragments loaded from shared memory with ldmatrix (V with .trans);
-// - 64-key K and V tiles staged in shared memory, rows padded by 16 bytes
-//   so ldmatrix reads hit distinct banks; key tiles wholly above the
-//   causal diagonal are skipped;
-// - the online softmax stays in registers: the S accumulator's layout is
-//   the P operand's, so P never goes through shared memory, and each
-//   thread's rows are known, so rescaling the output accumulator by
-//   exp(m_old - m_new) is a register multiply;
-// - a row with no allowed key so far keeps m = -inf; the exponentials
+// The bf16 design (D in {64, 128}):
+//
+// - A block is one producer warp and two consumer warpgroups, each owning
+//   64 query rows of one head. (The producer warp heads a warpgroup of
+//   its own, whose other three warps only hand their registers over.)
+//   Where group = H / HKV is even, the two warpgroups take the same 64
+//   rows of two query heads that share a KV head, so every K/V tile that
+//   arrives is used twice; otherwise they take 128 consecutive rows of
+//   one head.
+// - The grid is persistent (one block per SM) and walks the work units
+//   with the query tiles that have the most causal work first.
+// - Q comes by TMA once per unit; K and V come in 64-key tiles by TMA
+//   through a 3-stage ring with full/empty mbarriers. The tensor maps are
+//   3D (D, L, B*heads), so the ragged end of L is zero-filled by the
+//   hardware and never reads the next head's rows. The producer warp's
+//   lanes also stage each tile's 64 key segment ids.
+// - S = Q·Kᵀ is wgmma m64n64k16 with Q and K from shared memory (K-major,
+//   128-byte swizzle). P·V is wgmma m64nDk16 with P from registers: the S
+//   accumulator's layout is the A fragment's, so each 16-key slice of P
+//   is four bf16x2 registers packed from S; V comes from shared memory
+//   through the descriptor's transpose bit (MN-major B).
+// - The online softmax, the mask and the rescaling of the O accumulator
+//   stay in registers; key tiles wholly above the causal diagonal are
+//   never loaded.
+// - A row with no allowed key so far keeps m = -inf; the exponentials
 //   then subtract 0, never -inf, so an empty tile gives 0, not NaN. Every
 //   row meets its own key under the causal rule, so pad rows of
 //   left-padded batches come out finite.
-//
-// TMA loads, wgmma, a pipelined K/V ring and reading the KV heads
-// directly (no GQA repeat in memory) are later work.
+// - setmaxnreg: the block starts at 168 registers a thread (384 x 168
+//   fills the register file); the producer warpgroup drops to 40, and the
+//   128 x 128 registers it frees take each consumer thread to 232.
+// - The epilogue writes O / l straight through the output's strides.
 //
 // f32 inputs take a SIMT kernel (one warp per query row, no tensor
 // cores), so that f32 models run on the card too.
@@ -47,48 +62,75 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per K/V tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int BM = 64;               // query rows per consumer warpgroup
+constexpr int BN = 64;               // keys per K/V tile
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 256;       // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup (one warp loads)
+constexpr int TILE = 64 * 64 * 2;    // one 64 x 64 bf16 sub-tile (a 64-wide d block)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-__host__ __device__ constexpr int lds() {
-  return D + 8;  // padded smem row, in bf16 elements
+struct FLayout {
+  static constexpr int DB = D / 64;              // 64-wide d blocks
+  static constexpr int Q_BYTES = 2 * DB * TILE;  // both warpgroups' Q
+  static constexpr int KV_BYTES = DB * TILE;     // one K or one V tile
+  static constexpr int SEG = 1024;               // 64 key segment ids, padded to 1 KB
+  static constexpr int STAGE = 2 * KV_BYTES + SEG;
+  static constexpr int BARS = (2 + 2 * STAGES) * 8;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE + BARS;  // + alignment slack
+};
+
+struct Params {
+  const int* seg;
+  __nv_bfloat16* out;
+  long long sB, sH, sL;  // output strides, elements
+  int B, H, HKV, L;
+  float scale_log2;
+  int causal;
+  int pair;     // group even: the two warpgroups take two heads of one KV head
+  int n_qt;     // query tiles per head (64 rows paired, 128 rows otherwise)
+  int per_qt;   // work units per query tile
+  int total;    // work units
+};
+
+// One block's unit of work: batch row b, KV head kvh, and for each
+// consumer warpgroup its query head and first query row.
+struct Unit {
+  int b, kvh, h[2], q0[2];
+};
+
+__device__ __forceinline__ Unit decode(const Params& p, int u) {
+  Unit un;
+  const int qt = p.n_qt - 1 - u / p.per_qt;  // the most causal work first
+  const int r = u % p.per_qt;
+  const int group = p.H / p.HKV;
+  if (p.pair) {
+    const int pairs = group / 2;
+    un.b = r / (p.HKV * pairs);
+    const int r2 = r % (p.HKV * pairs);
+    un.kvh = r2 / pairs;
+    un.h[0] = un.kvh * group + 2 * (r2 % pairs);
+    un.h[1] = un.h[0] + 1;
+    un.q0[0] = un.q0[1] = qt * BM;
+  } else {
+    un.b = r / p.H;
+    un.h[0] = un.h[1] = r % p.H;
+    un.kvh = un.h[0] / group;
+    un.q0[0] = qt * 2 * BM;
+    un.q0[1] = un.q0[0] + BM;
+  }
+  return un;
 }
 
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)(BQ + 2 * BK) * lds<D>() * sizeof(__nv_bfloat16) + BK * sizeof(int);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// K/V tiles a warpgroup whose rows start at q0 needs.
+__device__ __forceinline__ int n_tiles(const Params& p, int q0) {
+  const int all = (p.L + BN - 1) / BN;
+  return p.causal ? min(all, q0 / BN + 1) : all;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -96,190 +138,241 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Copies rows [row0, row0 + 64) of a (L, D) bf16 matrix into smem rows of
-// lds<D>() elements, zero rows past L (a zero V row keeps 0 * V finite).
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int L, bool vec) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    __nv_bfloat16* d = dst + r * lds<D>() + col;
-    const int row = row0 + r;
-    if (row < L) {
-      const __nv_bfloat16* s = src + (long long)row * D + col;
-      if (vec) {
-        *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] = s[i];
-      }
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void pv_wgmma<128>(float (&o)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  hopper::wgmma_m64n128k16_rs(o, a, b, 1);
+}
+
+template <>
+__device__ __forceinline__ void pv_wgmma<64>(float (&o)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  hopper::wgmma_m64n64k16_rs(o, a, b, 1);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const int* __restrict__ seg, __nv_bfloat16* __restrict__ out,
-                  int H, int L, float scale_log2, bool causal) {
-  constexpr int LDS = lds<D>();
-  constexpr int KC = D / 16;  // 16-wide d chunks of Q·Kᵀ
-  constexpr int NO = D / 8;   // 8-wide d tiles of the output
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + BQ * LDS;
-  __nv_bfloat16* vs = ks + BK * LDS;
-  int* kseg = reinterpret_cast<int*>(vs + BK * LDS);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using Lay = FLayout<D>;
+  constexpr int DB = Lay::DB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;                      // [warpgroup][d block][64 rows][64]
+  unsigned char* ring = smem + Lay::Q_BYTES;     // stages of [K][V][segment ids]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * Lay::STAGE);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = full + STAGES;
 
-  const int n_qt = (L + BQ - 1) / BQ;
-  const long long bh = blockIdx.x / n_qt;
-  const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);  // most work first
-  const int q0 = qt * BQ;
-  const long long b = bh / H;
-  const long long base = bh * (long long)L * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row (and row + 8)
-  const int t = lane % 4;  // fragment column pair
-  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-
-  load_tile<D>(qs, q + base, q0, L, vec);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, CONSUMERS / 32);  // lane 0 of each consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);            // every producer lane
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16-wide d chunk
-  uint32_t qf[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    ldmatrix_x4(qf[kc], qs + (warp * 16 + lane % 16) * LDS + kc * 16 + (lane / 16) * 8);
-  }
-
-  int qi[2], qseg[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    qi[r] = q0 + warp * 16 + g + 8 * r;
-    qseg[r] = qi[r] < L ? seg[b * L + qi[r]] : 0;
-  }
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float lsum[2] = {0.0f, 0.0f};  // this thread's share of each row's sum
-
-  const int n_kt_all = (L + BK - 1) / BK;
-  const int n_kt = causal ? min(n_kt_all, qt + 1) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(ks, k + base, k0, L, vec);
-    load_tile<D>(vs, v + base, k0, L, vec);
-    for (int j = threadIdx.x; j < BK; j += THREADS) {
-      kseg[j] = k0 + j < L ? seg[b * L + k0 + j] : 0;
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer warpgroup: it hands its registers to the consumers
+    // (setmaxnreg works on whole warpgroups); its first warp loads
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x >= CONSUMERS + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
     }
-    __syncthreads();
-
-    // S = Q Kᵀ: 8 tiles of 8 keys, each 16 rows x 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];  // b0, b1 of key tile 2np, then of 2np + 1
-        ldmatrix_x4(bk, ks + (np * 16 + (lane % 8) + (lane / 16) * 8) * LDS + kc * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kc], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], bk[2], bk[3]);
+    int stage = 0;
+    uint32_t phase = 0, qphase = 0;
+    for (int u = blockIdx.x; u < p.total; u += gridDim.x) {
+      const Unit un = decode(p, u);
+      const int n = max(n_tiles(p, un.q0[0]), n_tiles(p, un.q0[1]));
+      if (lane == 0) {
+        hopper::mbar_wait(q_empty, qphase ^ 1);
+        hopper::mbar_arrive_expect_tx(q_full, Lay::Q_BYTES);
+        for (int w = 0; w < 2; ++w)
+          for (int db = 0; db < DB; ++db)
+            hopper::tma_load_3d(qs + (w * DB + db) * TILE, &qmap, q_full, db * 64, un.q0[w],
+                                un.b * p.H + un.h[w]);
+      }
+      qphase ^= 1;
+      const int kv_row = un.b * p.HKV + un.kvh;
+      for (int kt = 0; kt < n; ++kt) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * Lay::STAGE;
+        int* kseg = reinterpret_cast<int*>(st + 2 * Lay::KV_BYTES);
+        for (int i = lane; i < BN; i += 32) {
+          const int key = kt * BN + i;
+          kseg[i] = key < p.L ? p.seg[(long long)un.b * p.L + key] : 0;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&full[stage], 2 * Lay::KV_BYTES);
+          for (int db = 0; db < DB; ++db) {
+            hopper::tma_load_3d(st + db * TILE, &kmap, &full[stage], db * 64, kt * BN, kv_row);
+            hopper::tma_load_3d(st + Lay::KV_BYTES + db * TILE, &vmap, &full[stage], db * 64,
+                                kt * BN, kv_row);
+          }
+        } else {
+          hopper::mbar_arrive(&full[stage]);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
+    return;
+  }
 
-    // mask, scale to the log2 domain, online softmax
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i / 2;
-        const int jj = n * 8 + t * 2 + (i % 2);  // key within the tile
-        const int kj = k0 + jj;
-        const bool ok = kj < L && (!causal || kj <= qi[r]) && kseg[jj] == qseg[r];
-        s[n][i] = ok ? s[n][i] * scale_log2 : -INFINITY;
-        mx[r] = fmaxf(mx[r], s[n][i]);
-      }
-    }
-    float alpha[2], m_use[2];
+  // ---- consumers: warpgroup wg, its warp wi holds query rows
+  // q0 + 16 wi + lane / 4 (+ 8)
+  hopper::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x / 128;
+  const int wi = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const uint32_t q_addr = hopper::smem_u32(qs + wg * DB * TILE);
+  int stage = 0;
+  uint32_t phase = 0, qphase = 0;
+
+  for (int u = blockIdx.x; u < p.total; u += gridDim.x) {
+    const Unit un = decode(p, u);
+    const int n = max(n_tiles(p, un.q0[0]), n_tiles(p, un.q0[1]));
+    const int mine = n_tiles(p, un.q0[wg]);
+    const int h = un.h[wg];
+    int row[2], qseg[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_use[r] = m_new == -INFINITY ? 0.0f : m_new;  // no -inf - -inf
-      alpha[r] = exp2f(m[r] - m_use[r]);              // 0 while m was -inf
-      m[r] = m_new;
-      lsum[r] *= alpha[r];
+      row[r] = un.q0[wg] + wi * 16 + lane / 4 + 8 * r;
+      qseg[r] = row[r] < p.L ? p.seg[(long long)un.b * p.L + row[r]] : 0;
     }
+    float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float lsum[2] = {0.0f, 0.0f};  // this thread's share of each row's sum
+
+    hopper::mbar_wait(q_full, qphase);
+    qphase ^= 1;
+    for (int kt = 0; kt < n; ++kt) {
+      hopper::mbar_wait(&full[stage], phase);
+      if (kt < mine) {
+        unsigned char* st = ring + stage * Lay::STAGE;
+        const uint32_t k_addr = hopper::smem_u32(st);
+        const uint32_t v_addr = k_addr + Lay::KV_BYTES;
+        const int* kseg = reinterpret_cast<const int*>(st + 2 * Lay::KV_BYTES);
+
+        // S = Q Kᵀ (64 rows x 64 keys)
+        float s[32];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = exp2f(s[n][i] - m_use[i / 2]);  // masked: exp2(-inf) = 0
-        lsum[i / 2] += s[n][i];
+        for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks / 4) * TILE + (ks % 4) * 32;
+          hopper::wgmma_m64n64k16_ss(s, hopper::desc_sw128(q_addr + off, 16, 1024),
+                                     hopper::desc_sw128(k_addr + off, 16, 1024), ks > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        if (kt == mine - 1 && lane == 0) hopper::mbar_arrive(q_empty);  // Q read for good
+
+        // mask, scale to the log2 domain, online softmax
+        const int k0 = kt * BN;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int2 kk = *reinterpret_cast<const int2*>(kseg + 8 * j + 2 * t4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i / 2;
+            const int key = k0 + 8 * j + 2 * t4 + (i % 2);
+            const int ksg = (i % 2) ? kk.y : kk.x;
+            const bool ok = key < p.L && (!p.causal || key <= row[r]) && ksg == qseg[r];
+            s[4 * j + i] = ok ? s[4 * j + i] * p.scale_log2 : -INFINITY;
+            mx[r] = fmaxf(mx[r], s[4 * j + i]);
+          }
+        }
+        float alpha[2], m_use[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          m_use[r] = m_new == -INFINITY ? 0.0f : m_new;  // no -inf - -inf
+          alpha[r] = exp2f(m[r] - m_use[r]);              // 0 while m was -inf
+          m[r] = m_new;
+          lsum[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = exp2f(s[i] - m_use[(i / 2) % 2]);  // masked: exp2(-inf) = 0
+          lsum[(i / 2) % 2] += s[i];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 0] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+
+        // O += P V: the 16-key slice c of P as the A fragment, straight
+        // from the S accumulator
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          pa[c][0] = pack_bf16(s[8 * c + 0], s[8 * c + 1]);
+          pa[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);
+          pa[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);
+          pa[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // V rows (keys) 16c.. as the K dimension: 1024 bytes per 8 keys,
+          // 64-wide d blocks TILE bytes apart
+          pv_wgmma<D>(o, pa[c], hopper::desc_sw128(v_addr + c * 16 * 128, TILE, 1024));
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
 
-    // O += P V: P (16 rows x 64 keys) as four 16-key A fragments straight
-    // from the S accumulators, V tiles through ldmatrix.trans
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
-      pa[1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
-      pa[2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
-      pa[3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    }
 #pragma unroll
-      for (int dp = 0; dp < NO / 2; ++dp) {
-        uint32_t bv[4];  // b0, b1 of d tile 2dp, then of 2dp + 1
-        ldmatrix_x4_trans(bv, vs + (c * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDS +
-                                  dp * 16 + (lane / 16) * 8);
-        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= p.L) continue;
+      const float l = lsum[r] > 0.0f ? lsum[r] : 1.0f;
+      __nv_bfloat16* orow = p.out + un.b * p.sB + h * p.sH + row[r] * p.sL;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const __nv_bfloat162 v2 =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / l, o[4 * j + 2 * r + 1] / l);
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + t4 * 2) = v2;
       }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
-    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= L) continue;
-    const float l = lsum[r] > 0.0f ? lsum[r] : 1.0f;
-    __nv_bfloat16* orow = out + base + (long long)qi[r] * D;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(o[n][2 * r] / l, o[n][2 * r + 1] / l);
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + t * 2) = h;
     }
   }
 }
@@ -298,28 +391,33 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+constexpr int F_WARPS = 4;
+
 // One warp per query row: lane j scores key j0 + j of each 32-key chunk,
-// then every lane accumulates D/32 output columns over the chunk.
+// then every lane accumulates D/32 output columns over the chunk. Query
+// head h reads KV head h / (H / HKV).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F_WARPS * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ out, long long BH, int H, int L,
-                 float scale_log2, bool causal) {
+                 float* __restrict__ out, long long BH, int H, int HKV, int L, long long sB,
+                 long long sH, long long sL, float scale_log2, bool causal) {
   constexpr int E = D / 32;
-  __shared__ float qrow[WARPS][D];
+  __shared__ float qrow[F_WARPS][D];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * WARPS + warp;  // bh * L + i
+  const long long row = (long long)blockIdx.x * F_WARPS + warp;  // bh * L + i
   if (row >= BH * L) return;  // whole warps exit together
   const long long bh = row / L;
   const int i = (int)(row % L);
   const long long b = bh / H;
+  const int h = (int)(bh % H);
   for (int e = lane; e < D; e += 32) qrow[warp][e] = q[row * D + e];
   __syncwarp();
   const int si = seg[b * L + i];
-  const float* kb = k + bh * L * D;
-  const float* vb = v + bh * L * D;
+  const long long kvh = b * HKV + h / (H / HKV);
+  const float* kb = k + kvh * L * D;
+  const float* vb = v + kvh * L * D;
   float m = -INFINITY, lsum = 0.0f, acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.0f;
@@ -350,56 +448,94 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   const float l = lsum > 0.0f ? lsum : 1.0f;
+  float* orow = out + b * sB + h * sH + i * sL;
 #pragma unroll
-  for (int e = 0; e < E; ++e) out[row * D + lane + 32 * e] = acc[e] / l;
+  for (int e = 0; e < E; ++e) orow[lane + 32 * e] = acc[e] / l;
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, const int* seg, void* out,
-                int B, int H, int L, float scale_log2, bool causal, cudaStream_t s) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_bf16(const void* q, const void* k, const void* v, const int* seg, void* out, int B,
+                int H, int HKV, int L, long long sB, long long sH, long long sL,
+                float scale_log2, bool causal, cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
+    return (int)cudaErrorInvalidValue;  // TMA needs 16-byte-aligned bases
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[3] = {(uint64_t)D, (uint64_t)L, (uint64_t)B * H};
+  const uint64_t kdims[3] = {(uint64_t)D, (uint64_t)L, (uint64_t)B * HKV};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)L * D * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  if (!hopper::make_map_bf16(&qmap, q, 3, qdims, strides, box) ||
+      !hopper::make_map_bf16(&kmap, k, 3, kdims, strides, box) ||
+      !hopper::make_map_bf16(&vmap, v, 3, kdims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.seg = seg;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.sB = sB;
+  p.sH = sH;
+  p.sL = sL;
+  p.B = B;
+  p.H = H;
+  p.HKV = HKV;
+  p.L = L;
+  p.scale_log2 = scale_log2;
+  p.causal = causal ? 1 : 0;
+  const int group = H / HKV;
+  p.pair = group % 2 == 0 ? 1 : 0;
+  p.n_qt = p.pair ? (L + BM - 1) / BM : (L + 2 * BM - 1) / (2 * BM);
+  p.per_qt = p.pair ? B * HKV * (group / 2) : B * H;
+  const long long total = (long long)p.n_qt * p.per_qt;
+  if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.total = (int)total;
+  const int smem = FLayout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * H * ((L + BQ - 1) / BQ);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_bf16_kernel<D><<<(unsigned)blocks, THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out), H, L,
-      scale_log2, causal);
+  const int grid = (int)(total < hopper::sm_count() ? total : hopper::sm_count());
+  flash_wgmma_kernel<D><<<grid, THREADS, smem, s>>>(qmap, kmap, vmap, p);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const int* seg, void* out,
-               int B, int H, int L, float scale_log2, bool causal, cudaStream_t s) {
+int launch_f32(const void* q, const void* k, const void* v, const int* seg, void* out, int B,
+               int H, int HKV, int L, long long sB, long long sH, long long sL,
+               float scale_log2, bool causal, cudaStream_t s) {
   const long long rows = (long long)B * H * L;
-  const long long blocks = (rows + WARPS - 1) / WARPS;
+  const long long blocks = (rows + F_WARPS - 1) / F_WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_f32_kernel<D><<<(unsigned)blocks, THREADS, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), seg, static_cast<float*>(out), (long long)B * H, H, L,
-      scale_log2, causal);
+  flash_f32_kernel<D><<<(unsigned)blocks, F_WARPS * 32, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      seg, static_cast<float*>(out), (long long)B * H, H, HKV, L, sB, sH, sL, scale_log2,
+      causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; D in
-// {64, 128}; sm_scale multiplies Q·Kᵀ. The caller guarantees contiguous
-// device buffers of the shapes above. Launches on `stream`, does not
-// synchronise, and returns the CUDA error of the launch (0 on success).
+// {64, 128}; HKV divides H; sm_scale multiplies Q·Kᵀ; sB, sH, sL are the
+// output's strides in elements (its last axis dense). The caller
+// guarantees contiguous q, k, v and seg of the shapes above (bf16: q, k, v
+// 16-byte aligned, else cudaErrorInvalidValue). Launches on `stream`,
+// does not synchronise, and returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* seg, void* out, int B, int H, int L,
-                                      int D, float sm_scale, int causal, int dtype,
-                                      void* stream) {
+                                      const void* seg, void* out, int B, int H, int HKV,
+                                      int L, int D, long long sB, long long sH, long long sL,
+                                      float sm_scale, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   const float scale_log2 = sm_scale * LOG2E;
   const bool c = causal != 0;
-  if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, sg, out, B, H, L, scale_log2, c, s);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, sg, out, B, H, L, scale_log2, c, s);
-  if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, sg, out, B, H, L, scale_log2, c, s);
-  if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, sg, out, B, H, L, scale_log2, c, s);
+  if (HKV <= 0 || H % HKV != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && D == 128)
+    return launch_bf16<128>(q, k, v, sg, out, B, H, HKV, L, sB, sH, sL, scale_log2, c, s);
+  if (dtype == 1 && D == 64)
+    return launch_bf16<64>(q, k, v, sg, out, B, H, HKV, L, sB, sH, sL, scale_log2, c, s);
+  if (dtype == 0 && D == 128)
+    return launch_f32<128>(q, k, v, sg, out, B, H, HKV, L, sB, sH, sL, scale_log2, c, s);
+  if (dtype == 0 && D == 64)
+    return launch_f32<64>(q, k, v, sg, out, B, H, HKV, L, sB, sH, sL, scale_log2, c, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,14 +1,16 @@
 // Fused attention prep for Hopper (sm_90a): per-head qk-RMSNorm + RoPE +
-// (B, L, H*D) -> (B, H, L, D) transpose + GQA repeat of K and V.
+// (B, L, H*D) -> (B, H, L, D) transpose (+ GQA repeat of K and V).
 //
 // Replaces the TPU kernel rag_arc_tpu/ops/rope_prep.py::_kernel (reached
 // through rope_prep). Inputs are the projection layouts: q (B, L, NH*D),
 // k and v (B, L, NKV*D), each row (b, l) starting `ld` elements after the
 // previous one (a column slice of the fused qkv projection needs no
 // copy); cos_full and sin_signed (B, L, D) f32; optional per-head RMS-norm
-// scales qs, ks (D,) f32. Outputs are three contiguous (B, NH, L, D)
-// tensors in the input dtype; K and V are written once per query head of
-// their group (the GQA repeat happens at write time).
+// scales qs, ks (D,) f32. Outputs are contiguous (B, H, L, D) tensors in
+// the input dtype: Q with NH heads; K and V with NH heads when `repeat`
+// (written once per query head of their group: the GQA repeat of the JAX
+// kernel happens at write time), else with NKV heads, each written once
+// (the model's path: flash attention reads the KV heads directly).
 //
 //   x'  = qs * x * rsqrt(mean(x^2) + eps)          (f32; skipped without qs)
 //   out = x' * cos_full + roll(x', D/2) * sin_signed, rounded once
@@ -16,7 +18,8 @@
 // What bounds it on an H100: bytes. It does a few FLOPs per element and,
 // at the reranker's shape (B=64, L=512, NH/NKV = 16/8, D=128, bf16),
 // reads ~300 MB (q, k, v, and the f32 tables once per (b, l)) and writes
-// ~400 MB (K and V twice each): ~0.2 ms a layer at 3.35 TB/s. The design
+// ~400 MB with the repeat (K and V twice each) or ~270 MB without: ~0.21
+// or ~0.17 ms a layer at 3.35 TB/s. The design
 // makes one pass over each tensor: one warp per (b, l, kv head) loads its
 // rows with vector loads, keeps every intermediate in registers, and
 // writes each output row as one contiguous D-row. The eight warps of a
@@ -112,7 +115,7 @@ rope_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ ks, T* __restrict__ qo,
                  T* __restrict__ ko, T* __restrict__ vo, long long q_ld,
                  long long k_ld, long long v_ld, int B, int L, int NH,
-                 int NKV, float eps, bool vec) {
+                 int NKV, float eps, bool vec, bool repeat) {
   constexpr int E = D / 32;
   const int lane = threadIdx.x % 32;
   const long long w = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
@@ -135,9 +138,9 @@ rope_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // out[(b, h, l, :)] of a (B, NH, L, D) tensor
-  auto out_row = [&](T* base, int h) {
-    return base + ((b * NH + h) * L + l) * D + e0;
+  // out[(b, h, l, :)] of a (B, H, L, D) tensor
+  auto out_row = [&](T* base, int H, int h) {
+    return base + ((b * H + h) * L + l) * D + e0;
   };
 
   for (int g = 0; g < group; ++g) {
@@ -150,7 +153,7 @@ rope_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Pack<T, E> o;
 #pragma unroll
     for (int j = 0; j < E; ++j) o.v[j] = from_f32<T>(x[j]);
-    store_pack<T, E>(out_row(qo, h), o);
+    store_pack<T, E>(out_row(qo, NH, h), o);
   }
 
   {
@@ -163,9 +166,14 @@ rope_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < E; ++j) o.v[j] = from_f32<T>(x[j]);
     const Pack<T, E> vv = load_pack<T, E>(v + bl * v_ld + (long long)kvh * D + e0, vec);
-    for (int g = 0; g < group; ++g) {
-      store_pack<T, E>(out_row(ko, kvh * group + g), o);
-      store_pack<T, E>(out_row(vo, kvh * group + g), vv);  // V is copied as is
+    if (repeat) {
+      for (int g = 0; g < group; ++g) {
+        store_pack<T, E>(out_row(ko, NH, kvh * group + g), o);
+        store_pack<T, E>(out_row(vo, NH, kvh * group + g), vv);  // V is copied as is
+      }
+    } else {
+      store_pack<T, E>(out_row(ko, NKV, kvh), o);
+      store_pack<T, E>(out_row(vo, NKV, kvh), vv);
     }
   }
 }
@@ -174,7 +182,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* cosf,
            const float* sinf, const float* qs, const float* ks, void* qo,
            void* ko, void* vo, long long q_ld, long long k_ld, long long v_ld,
-           int B, int L, int NH, int NKV, float eps, bool vec,
+           int B, int L, int NH, int NKV, float eps, bool vec, bool repeat,
            cudaStream_t stream) {
   const long long warps = (long long)B * L * NKV;
   const long long blocks = (warps + WARPS - 1) / WARPS;
@@ -183,7 +191,7 @@ int launch(const void* q, const void* k, const void* v, const float* cosf,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cosf, sinf, qs, ks, static_cast<T*>(qo),
       static_cast<T*>(ko), static_cast<T*>(vo), q_ld, k_ld, v_ld, B, L, NH,
-      NKV, eps, vec);
+      NKV, eps, vec, repeat);
   return (int)cudaGetLastError();
 }
 
@@ -192,8 +200,9 @@ int launch(const void* q, const void* k, const void* v, const float* cosf,
 // C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; D in
 // {64, 128}; qs and ks both null (no norm) or both set. `vec` says that
 // every q/k/v/cos/sin row start is aligned for a D/32-element vector
-// load. The caller guarantees the layouts above, NH % NKV == 0 and
-// contiguous cos/sin. Launches on `stream`, does not synchronise, and
+// load; `repeat` picks NH-headed (1) or NKV-headed (0) K and V outputs.
+// The caller guarantees the layouts above, NH % NKV == 0 and contiguous
+// cos/sin. Launches on `stream`, does not synchronise, and
 // returns cudaGetLastError() (0 on success).
 extern "C" int rope_prep_launch(const void* q, const void* k, const void* v,
                                 const void* cosf, const void* sinf,
@@ -201,7 +210,7 @@ extern "C" int rope_prep_launch(const void* q, const void* k, const void* v,
                                 void* ko, void* vo, long long q_ld,
                                 long long k_ld, long long v_ld, int B, int L,
                                 int NH, int NKV, int D, float eps, int vec,
-                                int dtype, void* stream) {
+                                int repeat, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(cosf);
   const float* sn = static_cast<const float*>(sinf);
@@ -209,18 +218,18 @@ extern "C" int rope_prep_launch(const void* q, const void* k, const void* v,
   const float* ksc = static_cast<const float*>(ks);
   if ((qsc == nullptr) != (ksc == nullptr) || NKV <= 0 || NH % NKV != 0)
     return (int)cudaErrorInvalidValue;
-  const bool vv = vec != 0;
+  const bool vv = vec != 0, rep = repeat != 0;
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, c, sn, qsc, ksc, qo, ko, vo, q_ld,
-                                      k_ld, v_ld, B, L, NH, NKV, eps, vv, s);
+                                      k_ld, v_ld, B, L, NH, NKV, eps, vv, rep, s);
   if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, c, sn, qsc, ksc, qo, ko, vo, q_ld,
-                                     k_ld, v_ld, B, L, NH, NKV, eps, vv, s);
+                                     k_ld, v_ld, B, L, NH, NKV, eps, vv, rep, s);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, c, sn, qsc, ksc, qo, ko, vo, q_ld, k_ld,
-                              v_ld, B, L, NH, NKV, eps, vv, s);
+                              v_ld, B, L, NH, NKV, eps, vv, rep, s);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, c, sn, qsc, ksc, qo, ko, vo, q_ld, k_ld,
-                             v_ld, B, L, NH, NKV, eps, vv, s);
+                             v_ld, B, L, NH, NKV, eps, vv, rep, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,10 +12,11 @@ f32.
 ``attn_impl`` picks the attention path:
 
 - ``"auto"`` / ``"flash"``: the fused path — ``ops/rope_prep.py`` (qk-norm,
-  rope, transpose and GQA repeat in one pass) then
-  ``ops/flash_attention.py`` (causal, the mask as segment ids). On a CUDA
-  tensor both launch their kernels, at any length; on a CPU tensor both
-  run their plain versions.
+  rope and transpose in one pass, each KV head written once) then
+  ``ops/flash_attention.py`` (causal, the mask as segment ids, the KV
+  heads read directly, the output written in place as (B, L, NH, D) for
+  o_proj). On a CUDA tensor both launch their kernels, at any length; on
+  a CPU tensor both run their plain versions.
 - ``"einsum"``: the Flax unfused path in plain torch, with its rounding
   points (RMSNorm rounds to the compute dtype before rope, K/V repeated,
   a −1e9 additive causal & key-live bias, f32 softmax rounded to the
@@ -132,26 +133,30 @@ class Qwen3Attention(nn.Module):
         k = qkv[..., nh * hd : (nh + nkv) * hd]
         v = qkv[..., (nh + nkv) * hd :]
         if ctx.fused:
-            # one pass: qk-norm + rope + transpose + GQA repeat; the
-            # column slices go in as they are (rows evenly strided)
+            # one pass: qk-norm + rope + transpose, the KV heads written
+            # once (the column slices go in as they are, rows evenly
+            # strided); attention reads the KV heads directly and writes
+            # (B, L, NH, D) in place, the layout o_proj reads
             q, k, v = rope_prep(
                 q, k, v, ctx.cos, ctx.sin, self.q_norm.weight.float(),
                 self.k_norm.weight.float(), nh=nh, nkv=nkv, d=hd, eps=cfg.rms_norm_eps,
+                repeat_kv=False,
             )
-            out = flash_attention(q, k, v, ctx.seg, causal=True, sm_scale=1.0 / math.sqrt(hd))
-            out = out.to(cfg.dtype)
-        else:
-            q = self.q_norm(q.reshape(b, l, nh, hd))
-            k = self.k_norm(k.reshape(b, l, nkv, hd))
-            q = rope(q.transpose(1, 2), ctx.positions, cfg.rope_theta)
-            k = rope(k.transpose(1, 2), ctx.positions, cfg.rope_theta)
-            v = v.reshape(b, l, nkv, hd).transpose(1, 2)
-            group = nh // nkv
-            k = k.repeat_interleave(group, dim=1)
-            v = v.repeat_interleave(group, dim=1)
-            scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
-            probs = torch.softmax(scores + ctx.bias, dim=-1).to(cfg.dtype)
-            out = probs @ v
+            buf = torch.empty((b, l, nh, hd), dtype=q.dtype, device=q.device)
+            flash_attention(q, k, v, ctx.seg, causal=True, sm_scale=1.0 / math.sqrt(hd),
+                            out=buf.transpose(1, 2))
+            return _linear(self.o_proj, buf.view(b, l, nh * hd), cfg.dtype)
+        q = self.q_norm(q.reshape(b, l, nh, hd))
+        k = self.k_norm(k.reshape(b, l, nkv, hd))
+        q = rope(q.transpose(1, 2), ctx.positions, cfg.rope_theta)
+        k = rope(k.transpose(1, 2), ctx.positions, cfg.rope_theta)
+        v = v.reshape(b, l, nkv, hd).transpose(1, 2)
+        group = nh // nkv
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        probs = torch.softmax(scores + ctx.bias, dim=-1).to(cfg.dtype)
+        out = probs @ v
         out = out.transpose(1, 2).reshape(b, l, nh * hd)
         return _linear(self.o_proj, out, cfg.dtype)
 

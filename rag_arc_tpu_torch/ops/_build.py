@@ -3,10 +3,11 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. The library is built on first
-use into ``rag_arc_tpu_torch/_build/``, named by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads as it
-is. Nothing here runs at import time: a CPU-only install imports the
-package without ``nvcc``.
+use into ``rag_arc_tpu_torch/_build/``, named by a hash of the source,
+every header under ``csrc/`` (``hopper.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads as it is. Nothing
+here runs at import time: a CPU-only install imports the package without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -59,13 +60,22 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
+    """The hash that names ``csrc/<name>.cu``'s library: the source, every
+    ``*.cuh`` header beside it (by name and content) and the nvcc flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
+    """Compile ``csrc/<name>.cu`` (once per source and header hash) and
+    load it."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = source_digest(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     log_path = BUILD_DIR / f"lib{name}_{digest}.log"

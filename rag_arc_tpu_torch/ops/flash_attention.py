@@ -9,15 +9,23 @@ Counterpart of the library flash attention that
 on the CPU it runs :func:`attention_plain`.
 
 Semantics: query i attends key j iff ``seg[i] == seg[j]`` and, when
-causal, ``j <= i``. The reranker passes the mask as int (pad 0, live 1),
-so a live row attends the live keys up to it and a pad row attends only
-pads. No row attends an empty set under the causal rule (it always sees
-itself), so every row comes out finite.
+causal, ``j <= i``. K and V may carry fewer heads than Q (grouped-query
+attention): with HKV dividing H, query head h reads KV head
+``h // (H // HKV)``; HKV == H is the JAX library's own contract. The
+reranker passes the mask as int (pad 0, live 1), so a live row attends
+the live keys up to it and a pad row attends only pads. No row attends
+an empty set under the causal rule (it always sees itself), so every
+row comes out finite.
 
 Rounding points, which the kernel follows: scores and the softmax in f32;
 the unnormalized probabilities ``exp(s - max)`` are rounded to the value
 dtype before P·V, which accumulates in f32; the row sum is taken over the
 f32 probabilities; the output is ``acc / sum`` in q's dtype.
+
+``out=`` takes a (B, H, L, D) tensor whose last axis is dense and which
+may be a strided view (``buf.transpose(1, 2)`` of a (B, L, H, D) buffer):
+the result is written through its strides and the tensor returned, so the
+model's o_proj reads the buffer with no copy.
 """
 
 from __future__ import annotations
@@ -48,10 +56,16 @@ def attention_plain(
     *,
     causal: bool,
     sm_scale: float,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: q, k, v (B, H, L, D), segment_ids (B, L) int
-    → (B, H, L, D) in q's dtype. Materializes the (B, H, L, L) scores."""
+    """Plain PyTorch version: q (B, H, L, D), k/v (B, HKV, L, D) with HKV
+    dividing H, segment_ids (B, L) int → (B, H, L, D) in q's dtype, written
+    into ``out`` when given. Materializes the (B, H, L, L) scores."""
     l = q.shape[2]
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
     s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
     allowed = segment_ids[:, :, None] == segment_ids[:, None, :]  # (B, L, L)
     if causal:
@@ -64,8 +78,11 @@ def attention_plain(
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
     acc = p.to(v.dtype).float() @ v.float()
-    out = acc / torch.where(denom > 0, denom, torch.ones_like(denom))
-    return out.to(q.dtype)
+    res = (acc / torch.where(denom > 0, denom, torch.ones_like(denom))).to(q.dtype)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,12 +93,23 @@ def load() -> Built:
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
         ctypes.c_void_p, ctypes.c_void_p,                   # segment ids, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, L, D
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H HKV L D
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # out strides
         ctypes.c_float, ctypes.c_int, ctypes.c_int,              # scale, causal, dtype
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return built
+
+
+def _check_out(out: torch.Tensor, q: torch.Tensor) -> None:
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(
+            f"out must be {tuple(q.shape)} {q.dtype} on {q.device}, got "
+            f"{tuple(out.shape)} {out.dtype} on {out.device}"
+        )
+    if out.stride(-1) != 1:
+        raise ValueError("out must have a dense last axis")
 
 
 def flash_attention(
@@ -92,25 +120,34 @@ def flash_attention(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """q, k, v (B, H, L, D) of one dtype; segment_ids (B, L) int32 (for
-    the reranker the mask as int: pad 0, live 1); ``sm_scale`` defaults
-    to 1/sqrt(D). Returns (B, H, L, D) in q's dtype.
+    """q (B, H, L, D), k/v (B, HKV, L, D) of one dtype with HKV dividing H
+    (query head h reads KV head h // (H // HKV)); segment_ids (B, L) int32
+    (for the reranker the mask as int: pad 0, live 1); ``sm_scale``
+    defaults to 1/sqrt(D). Returns (B, H, L, D) in q's dtype: ``out``
+    when given (any strides, last axis dense), written in place.
 
     CPU tensors take :func:`attention_plain`; CUDA tensors launch the
-    kernel on the current stream or raise."""
+    kernel on the current stream or raise. A contiguous bf16 q, k or v
+    whose data is off a 16-byte boundary (a view with a storage offset) is
+    copied first: the kernel's TMA loads need aligned bases."""
     global launches
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+    if (q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or k.shape[0] != q.shape[0]
+            or k.shape[2:] != q.shape[2:] or k.shape[1] == 0 or q.shape[1] % k.shape[1]):
         raise ValueError(
-            f"expected q, k, v of one (B, H, L, D) shape, got "
+            f"expected q (B, H, L, D) and k, v (B, HKV, L, D) with HKV dividing H, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, h, l, d = q.shape
+    hkv = k.shape[1]
     if segment_ids.shape != (b, l):
         raise ValueError(f"segment_ids must be ({b}, {l}), got {tuple(segment_ids.shape)}")
+    if out is not None:
+        _check_out(out, q)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, segment_ids, causal=causal, sm_scale=scale)
+        return attention_plain(q, k, v, segment_ids, causal=causal, sm_scale=scale, out=out)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     if any(t.device != q.device for t in (k, v, segment_ids)):
@@ -126,15 +163,22 @@ def flash_attention(
         raise ValueError(f"segment_ids must be int32, not {segment_ids.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, segment_ids)):
         raise ValueError("flash_attention kernel needs contiguous tensors")
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif q.dtype == torch.bfloat16 and (
+            out.data_ptr() % 4 or any(st % 2 for st in out.stride()[:3])):
+        raise ValueError("out must allow 4-byte bf16 pair stores (even strides, aligned)")
     if q.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     fn = load().lib.flash_attention_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            out.data_ptr(), b, h, l, d, scale, int(causal), _DTYPE_CODE[q.dtype], stream,
+            out.data_ptr(), b, h, hkv, l, d, out.stride(0), out.stride(1), out.stride(2),
+            scale, int(causal), _DTYPE_CODE[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")

@@ -1,5 +1,5 @@
 """Fused attention prep: per-head qk-RMSNorm + RoPE + (B,L,H·D)→(B,H,L,D)
-+ GQA repeat of K/V.
++ GQA repeat of K/V (optional).
 
 Counterpart of ``rag_arc_tpu/ops/rope_prep.py``. On the card
 :func:`rope_prep` runs the hand-written CUDA kernel ``csrc/rope_prep.cu``
@@ -13,6 +13,11 @@ with ``cos_full = [cos a, cos a]`` and ``sin_signed = [-sin a, sin a]``
     rope(x) = x * cos_full + roll(x, D/2) * sin_signed.
 
 The norm and the rotation run in f32 and round once, to the input dtype.
+
+``repeat_kv=True`` (the default) keeps the JAX contract: K and V come back
+with NH heads, each KV head repeated for its query-head group.
+``repeat_kv=False`` returns them with their NKV heads, each written once:
+the model's path, whose flash attention reads the KV heads directly.
 """
 
 from __future__ import annotations
@@ -54,10 +59,12 @@ def rope_prep_plain(
     qs: Optional[torch.Tensor] = None,
     ks: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
+    repeat_kv: bool = True,
 ):
     """Plain PyTorch version. q (B, L, NH, D), k/v (B, L, NKV, D); cos/sin
-    (B, L, D) f32; qs/ks optional (D,) RMS-norm scales. Returns three
-    (B, NH, L, D) tensors in q's dtype."""
+    (B, L, D) f32; qs/ks optional (D,) RMS-norm scales. Returns (B, NH, L,
+    D) q and (B, NH or, without ``repeat_kv``, NKV, L, D) k, v in q's
+    dtype."""
     d = q.shape[-1]
 
     def norm(x, s):
@@ -70,12 +77,14 @@ def rope_prep_plain(
     def one(x, s):
         xt = norm(x, s).transpose(1, 2)  # (B, H, L, D) f32
         r = xt * cos[:, None] + torch.roll(xt, d // 2, dims=-1) * sin[:, None]
-        return r.to(q.dtype)
+        return r.to(q.dtype).contiguous()
 
-    group = q.shape[2] // k.shape[2]
-    kr = one(k, ks).repeat_interleave(group, dim=1)
-    vr = v.transpose(1, 2).repeat_interleave(group, dim=1)
-    return one(q, qs), kr, vr
+    kr, vr = one(k, ks), v.transpose(1, 2)
+    if repeat_kv:
+        group = q.shape[2] // k.shape[2]
+        kr = kr.repeat_interleave(group, dim=1)
+        vr = vr.repeat_interleave(group, dim=1)
+    return one(q, qs), kr, vr.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,7 +99,7 @@ def load() -> Built:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qo, ko, vo
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # row strides
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # eps, vec, repeat, dtype
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -124,11 +133,13 @@ def rope_prep(
     nkv: int,
     d: int,
     eps: float = 1e-6,
+    repeat_kv: bool = True,
 ):
     """q (B, L, NH·D), k/v (B, L, NKV·D) in the projection layout; cos/sin
     (B, L, D) f32 from :func:`rope_cos_sin`; qs/ks optional (D,) per-head
-    RMS-norm scales (both or neither). Returns the normed, roped,
-    transposed and GQA-repeated (B, NH, L, D) q, k, v in q's dtype.
+    RMS-norm scales (both or neither). Returns the normed, roped and
+    transposed (B, NH, L, D) q and k, v in q's dtype: GQA-repeated to
+    (B, NH, L, D) with ``repeat_kv``, else (B, NKV, L, D).
 
     CPU tensors take :func:`rope_prep_plain`; CUDA tensors launch the
     kernel on the current stream or raise."""
@@ -148,7 +159,7 @@ def rope_prep(
     if q.device.type == "cpu":
         return rope_prep_plain(
             q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d), v.reshape(b, l, nkv, d),
-            cos, sin, qs, ks, eps,
+            cos, sin, qs, ks, eps, repeat_kv,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no rope_prep kernel for device {q.device}")
@@ -168,7 +179,9 @@ def rope_prep(
         raise ValueError("rope_prep kernel needs q, k, v with contiguous rows")
     if not all(t.is_contiguous() for t in tensors[3:]):
         raise ValueError("rope_prep kernel needs contiguous cos, sin, qs, ks")
-    out = [torch.empty((b, nh, l, d), dtype=q.dtype, device=q.device) for _ in range(3)]
+    kv_heads = nh if repeat_kv else nkv
+    out = [torch.empty((b, h, l, d), dtype=q.dtype, device=q.device)
+           for h in (nh, kv_heads, kv_heads)]
     if b == 0 or l == 0:
         return tuple(out)
     per_lane = d // 32
@@ -181,7 +194,7 @@ def rope_prep(
             None if qs is None else qs.data_ptr(), None if ks is None else ks.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             q.stride(1), k.stride(1), v.stride(1),
-            b, l, nh, nkv, d, float(eps), vec, _DTYPE_CODE[q.dtype], stream,
+            b, l, nh, nkv, d, float(eps), vec, int(repeat_kv), _DTYPE_CODE[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"rope_prep kernel launch failed: CUDA error {err}")

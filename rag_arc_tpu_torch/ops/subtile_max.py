@@ -3,8 +3,9 @@
 Counterpart of ``rag_arc_tpu/ops/two_level_stream.py::subtile_max_stream``
 and of the ``_subtile_max_kernel_ip`` producer inside
 ``rag_arc_tpu/ops/two_level.py::two_level_topk``. On the card it runs the
-hand-written CUDA kernel ``csrc/subtile_max.cu``; on the CPU it runs
-:func:`subtile_max_plain`, the same function in plain PyTorch.
+hand-written CUDA kernel ``csrc/subtile_max.cu`` (bf16: wgmma fed by TMA;
+f32: CUDA-core FMAs); on the CPU it runs :func:`subtile_max_plain`, the
+same function in plain PyTorch.
 
 With ``sqnorm`` given it runs the l2 mode, the counterpart of
 ``rag_arc_tpu/ops/two_level.py::_subtile_max_kernel`` (the l2 producer
@@ -75,6 +76,27 @@ def subtile_max_plain(
     return scores.reshape(queries.shape[0], n // g, g).amax(dim=2)
 
 
+def tma_operands(queries: torch.Tensor, corpus: torch.Tensor):
+    """The bf16 operands as the kernel's TMA loads need them: bases on a
+    16-byte boundary and rows of a multiple of 8 elements (16 bytes). An
+    operand that is not (a view with a storage offset, d % 8 != 0) is
+    copied into fresh storage, zero-padded in d to a multiple of 8: zero
+    columns leave every dot product unchanged. This is a copy, not a
+    fallback: the kernel still runs. The index's own storage (d = 768, its
+    own allocation) goes through as it is."""
+    d = corpus.shape[1]
+    width = -(-d // 8) * 8
+
+    def fit(t: torch.Tensor) -> torch.Tensor:
+        if width == d and t.data_ptr() % 16 == 0:
+            return t
+        out = t.new_zeros((t.shape[0], width))
+        out[:, :d] = t
+        return out
+
+    return fit(queries), fit(corpus)
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> Built:
     """Build (once) and bind the CUDA kernel library."""
@@ -126,7 +148,9 @@ def subtile_max(
     ``queries`` are already normalized (cosine) and cast to the corpus
     dtype (f32 or bf16). CPU tensors take :func:`subtile_max_plain`; CUDA
     tensors launch the kernel on the current stream or raise. g = 256 runs
-    the kernel at g = 128 and takes the pairwise max (:func:`widen_g`)."""
+    the kernel at g = 128 and takes the pairwise max (:func:`widen_g`).
+    bf16 operands that TMA cannot describe are copied first
+    (:func:`tma_operands`)."""
     global launches, launches_l2
     _check(queries, corpus, valid, g, sqnorm)
     if corpus.device.type == "cpu":
@@ -154,6 +178,9 @@ def subtile_max(
     out = torch.empty((b, n // kg), dtype=torch.float32, device=corpus.device)
     if b == 0 or n == 0:
         return widen_g(out, g, kg)
+    if corpus.dtype == torch.bfloat16:
+        queries, corpus = tma_operands(queries, corpus)
+        d = corpus.shape[1]
     fn = load().lib.subtile_max_launch
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,9 +1,11 @@
 """Card-only tests of the port's CUDA kernels (sub-tile max bf16/f32 with
 its l2 mode, int8, rope_prep, flash attention, the pipelined producer,
 the fused top-k and the corpus stream): each kernel against its
-plain PyTorch version at small shapes (int8 bit for bit), offset views
-and ragged lengths, the launch counts, the wrappers' refusals, and a
-small Qwen3 forward through both attention kernels. They skip where no
+plain PyTorch version at small shapes (int8 bit for bit), offset views,
+padded d, ragged lengths and query blocks, g up to 256, dead sub-tiles,
+KV heads shared by 1-8 query heads, ``out=`` views, the launch counts,
+the wrappers' refusals, and small Qwen3 forwards through both attention
+kernels (one launch each a layer, no plain version). They skip where no
 CUDA card is present (a CUDA kernel has no CPU mode); on a machine with a
 card run
 
@@ -87,6 +89,38 @@ def test_all_dead_subtile_is_neg(cuda):
     valid[32:48] = False
     got = sm.subtile_max(q, x, valid, 16)
     assert (got[:, 2] == sm.NEG).all()
+
+
+@pytest.mark.parametrize("b", [7, 130, 300])
+@pytest.mark.parametrize("g", [64, 128, 256])
+@pytest.mark.parametrize("l2", [False, True])
+def test_kernel_wide_g_and_dead_subtiles(cuda, b, g, l2):
+    """The wgmma kernel at g up to 256 (served from g = 128 maxima), a
+    ragged 256-query block, and whole dead sub-tiles, in both modes."""
+    q, x, valid = _inputs(4096, 96, b, torch.bfloat16, cuda, seed=4)
+    valid[512:1024] = False
+    x[~valid] = 0
+    sq = (x.float() * x.float()).sum(1) if l2 else None
+    got = sm.subtile_max(q, x, valid, g, sqnorm=sq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, g, sqnorm=sq),
+                               atol=1e-4, rtol=0)
+    assert (got[:, 512 // g : 1024 // g] == sm.NEG).all()
+
+
+@pytest.mark.parametrize("d", [100, 36])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_l2_kernel_on_padded_and_offset_operands(cuda, d, offset):
+    """The wrapper's copies (d % 8 != 0, a base off 16 bytes) feed the l2
+    mode too."""
+    q, x, valid = _inputs(2048, d, 33, torch.bfloat16, cuda, seed=5)
+    sq = (x.float() * x.float()).sum(1)
+    qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+    xv = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+    got = sm.subtile_max(qv, xv, valid, 16, sqnorm=sq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, 16, sqnorm=sq),
+                               atol=1e-4, rtol=0)
 
 
 def test_launch_count(cuda):
@@ -290,6 +324,32 @@ def test_rope_prep_kernel_matches_plain(cuda, b, l, nh, nkv, d, dtype, norm):
     _rope_check(got, *case, nh, nkv, d)
 
 
+@pytest.mark.parametrize("b,l,nh,nkv,d,dtype", [
+    (4, 128, 16, 8, 128, torch.bfloat16),
+    (3, 77, 16, 8, 128, torch.bfloat16),     # ragged L
+    (2, 50, 8, 2, 64, torch.bfloat16),       # group 4, D = 64
+    (2, 64, 8, 8, 128, torch.bfloat16),      # nh == nkv
+    (2, 33, 8, 4, 128, torch.float32),
+])
+def test_rope_prep_kernel_without_repeat(cuda, b, l, nh, nkv, d, dtype):
+    """``repeat_kv=False``: K and V with their NKV heads, each written
+    once, against the plain version."""
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    q, k, v, cos, sin, qs, ks = _rope_case(b, l, nh, nkv, d, dtype, cuda)
+    before = rp.launches
+    got = rp.rope_prep(q, k, v, cos, sin, qs, ks, nh=nh, nkv=nkv, d=d, repeat_kv=False)
+    torch.cuda.synchronize()
+    assert rp.launches == before + 1
+    want = rp.rope_prep_plain(q.reshape(b, l, nh, d), k.reshape(b, l, nkv, d),
+                              v.reshape(b, l, nkv, d), cos, sin, qs, ks, repeat_kv=False)
+    atol, rtol = (1e-2, 8e-3) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    assert got[0].shape == (b, nh, l, d) and got[1].shape == got[2].shape == (b, nkv, l, d)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=0)  # V: a copy
+
+
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_rope_prep_kernel_on_qkv_slices_and_offset_views(cuda, offset):
     """Column slices of a fused qkv output (rows strided, no copy), and
@@ -337,6 +397,13 @@ def _attn_case(b, h, l, d, dtype, device, seed=0):
     return q, k, v, seg
 
 
+def _gqa_case(b, h, hkv, l, d, dtype, device, seed=0):
+    q, _, _, seg = _attn_case(b, h, l, d, dtype, device, seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 100)
+    k, v = (torch.randn(b, hkv, l, d, generator=gen).to(device, dtype) for _ in range(2))
+    return q, k, v, seg
+
+
 def _attn_check(got, q, k, v, seg, causal=True):
     from rag_arc_tpu_torch.ops.flash_attention import attention_plain
 
@@ -370,6 +437,42 @@ def test_flash_kernel_matches_plain(cuda, b, h, l, d, dtype):
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     _attn_check(got, q, k, v, seg)
+
+
+@pytest.mark.parametrize("b,h,hkv,l,d,dtype", [
+    (2, 8, 4, 128, 128, torch.bfloat16),   # group 2: two heads share each K/V tile
+    (3, 4, 2, 200, 128, torch.bfloat16),   # ragged L
+    (2, 8, 2, 77, 64, torch.bfloat16),     # group 4, D = 64
+    (2, 6, 2, 130, 128, torch.bfloat16),   # group 3: 128 rows of one head a block
+    (2, 4, 1, 70, 64, torch.bfloat16),     # one KV head
+    (1, 16, 8, 5, 128, torch.bfloat16),    # shorter than one tile
+    (2, 4, 2, 70, 128, torch.float32),
+    (2, 6, 2, 33, 64, torch.float32),
+])
+def test_flash_kernel_gqa_matches_plain(cuda, b, h, hkv, l, d, dtype):
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _gqa_case(b, h, hkv, l, d, dtype, cuda)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    _attn_check(got, q, k, v, seg)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hkv", [4, 2])
+def test_flash_kernel_writes_through_out_strides(cuda, dtype, hkv):
+    """out= a (B, L, H, D) buffer seen as (B, H, L, D): every element
+    written in place, the buffer returned."""
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seg = _gqa_case(3, 4, hkv, 150, 128, dtype, cuda, seed=4)
+    buf = torch.full((3, 150, 4, 128), float("nan"), dtype=dtype, device=cuda)
+    got = fa.flash_attention(q, k, v, seg, out=buf.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf.data_ptr() and not torch.isnan(buf).any()
+    _attn_check(buf.transpose(1, 2), q, k, v, seg)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -446,13 +549,50 @@ def test_qwen3_kernel_path_close_to_einsum(cuda, dtype):
     r0, f0 = rp.launches, fa.launches
     with torch.no_grad():
         got = model.last_logits(ids, mask).float()
-        want = ref.last_logits(ids, mask).float()
     torch.cuda.synchronize()
     assert rp.launches - r0 == 2 and fa.launches - f0 == 2
+    with torch.no_grad():
+        want = ref.last_logits(ids, mask).float()
     assert torch.isfinite(got).all()
     # bf16: the two paths round at different points (models/qwen3.py)
     atol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+def test_qwen3_forward_launches_each_kernel_once_a_layer(cuda, monkeypatch):
+    """A Qwen3 forward on the card: one rope_prep launch (KV heads written
+    once) and one flash_attention launch (KV heads read directly, output
+    written in place) per layer, and no plain version."""
+    from rag_arc_tpu_torch.models import qwen3 as tq
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+
+    plain_calls = []
+    for mod, name in ((rp, "rope_prep_plain"), (fa, "attention_plain")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw:
+                            (plain_calls.append(_n), _fn(*a, **kw))[1])
+    seen = []
+    rope = tq.rope_prep
+    monkeypatch.setattr(tq, "rope_prep", lambda *a, **kw: (
+        seen.append(("rope", kw.get("repeat_kv", True))), rope(*a, **kw))[1])
+    flash = tq.flash_attention
+    monkeypatch.setattr(tq, "flash_attention", lambda q, k, v, seg, **kw: (
+        seen.append(("flash", k.shape[1], kw["out"].transpose(1, 2).is_contiguous())),
+        flash(q, k, v, seg, **kw))[1])
+    cfg = tq.Qwen3Config(vocab_size=1000, hidden_size=512, intermediate_size=512,
+                         num_hidden_layers=3, num_attention_heads=8, num_key_value_heads=2,
+                         head_dim=64, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = tq.init_qwen3(cfg, 0, cuda)
+    ids = torch.randint(4, 1000, (4, 100), device=cuda)
+    r0, f0 = rp.launches, fa.launches
+    with torch.no_grad():
+        logits = model.last_logits(ids, torch.ones_like(ids, dtype=torch.bool))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert (rp.launches - r0, fa.launches - f0) == (3, 3)
+    assert plain_calls == []
+    assert seen == [("rope", False), ("flash", 2, True)] * 3
 
 
 # -- the kernel probe's kernels: piped producer, fused top-k, corpus stream ------

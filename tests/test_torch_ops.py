@@ -640,7 +640,7 @@ def test_flash_attention_checks_shapes():
     from rag_arc_tpu_torch.ops.flash_attention import flash_attention
 
     q = torch.zeros(2, 4, 8, 64)
-    with pytest.raises(ValueError, match="expected"):
-        flash_attention(q, q[:, :2], q, torch.ones(2, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="expected"):  # 3 KV heads do not divide 4
+        flash_attention(q, q[:, :3], q[:, :3], torch.ones(2, 8, dtype=torch.int32))
     with pytest.raises(ValueError, match="segment_ids"):
         flash_attention(q, q, q, torch.ones(2, 9, dtype=torch.int32))
