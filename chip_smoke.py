@@ -6,7 +6,7 @@
 Phases, each printing its own lines and times:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the four CUDA sources of ``rag_arc_tpu_torch/csrc`` for
+  2. build: compile the eight CUDA sources of ``rag_arc_tpu_torch/csrc`` for
      sm_90a, one ``nvcc`` each, in parallel (nvcc's register / shared-memory
      report is printed);
   3. kernels against their plain PyTorch versions on the card (N = 262,144,
@@ -18,8 +18,16 @@ Phases, each printing its own lines and times:
        {16, 128, 256}, d = 100 and a view off a 16-byte boundary (the
        wrapper's copies), whole dead sub-tiles; and ``torch.matmul(q, x.T)``
        at B = 512, N = 2M as a second yardstick (the GEMM alone);
-     - ``subtile_max_i8``: block scales B in {1, 7, 128, 512}, per-row
-       scales B = 64, exactly equal; at N = 2M both scale modes;
+     - ``subtile_max_i8`` (s8 ``wgmma``): block scales B in {1, 7, 128,
+       512}, per-row scales B = 64, B = 130 with g = 256, d = 100 on an
+       offset view, exactly equal; at N = 2M both scale modes timed in
+       turns, beside ``torch._int_mm(q, codes.t())`` (the GEMM alone);
+     - ``subtile_select``: the select kernel on a real (512, 125,000) slab
+       of sub-tile maxima and on a constructed one (ties past the k-th
+       slot, -0.0 beside +0.0, all-NEG, half-NEG and nearly dead rows) at
+       k in {10, 20, 100}: live picks, flags and residuals equal to the
+       plain tournament's; timed in turns against it and beside
+       ``torch.topk`` at each k;
      - ``rope_prep`` at the reranker shape (B = 64, L = 512, nh/nkv 16/8,
        D = 128, bf16, left-padded positions, norm folded in), ragged,
        nh = nkv, D = 64 and f32 cases, with and without ``repeat_kv``;
@@ -31,15 +39,22 @@ Phases, each printing its own lines and times:
        in turns at the reranker shape (16/8 heads) beside SDPA;
   4. index: a 2,000,000 x 768 corpus, its queries and their f32 exact
      top-10 oracle, shared by three indexes, each searched in batches of
-     512 queries (k = 10) with ids checked against the plain producer's:
-     - bf16 cosine, 30 batches: QPS, p50 batch time, recall@10;
+     512 queries (k = 10) with ids checked against the all-plain
+     pipeline's (the producer's and the select's plain versions), the
+     producer and select kernels' launches counted, and one batch split
+     into producer, select and rescore (with the select at kf in {10, 20,
+     100}):
+     - bf16 cosine, 30 batches, the sustained run three times after an
+       untimed warm-up pass: QPS and its spread, p50 batch time,
+       recall@10;
      - bf16 l2 over the first 2^20 rows, 5 batches, recall@10 against an
        f32 l2 oracle;
      - int8 cosine with the default int4 residual refine and kf_mult 2, 30
        batches: QPS, p50, recall@10, bytes on the card, host quantization
        time, and one B = 1 search whose peak memory must stay under the
        index's resident bytes + 1 GiB (no f32 copy of the corpus);
-  5. end to end: ``TorchEncoderEmbeddings`` at the full 768 x 12 config
+  5. end to end (the select kernel's launches counted as well):
+     ``TorchEncoderEmbeddings`` at the full 768 x 12 config
      (seeded random weights) feeding ``TorchVectorStore.from_texts``:
      - bf16 with 262,144 generated documents; 4 batches of 512 verbatim
        document texts through ``batch_similarity_search_with_score`` and 8
@@ -68,6 +83,7 @@ describing each kernel; the last line is the run's JSON status.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -94,6 +110,12 @@ EDGE_CASES = [(130, 262_096, 768, 16, 0, False), (130, 262_096, 768, 16, 0, True
               (512, 262_144, 768, 128, 0, False), (64, 262_144, 768, 256, 0, True),
               (7, 65_536, 100, 16, 0, False), (33, 65_536, 768, 16, 3, False)]
 I8_CASES = [(True, 1), (True, 7), (True, 128), (True, 512), (False, 64)]  # (block scales, B)
+# the s8 kernel's edges: (block scales, B, N, d, g, storage offset); a
+# ragged 256-query block, g = 256 (served from g = 128), d = 100 (the
+# wrapper's zero-padding copy to 112) on a view off a 16-byte boundary
+I8_EDGES = [(True, 130, 262_144, 768, 256, 0), (False, 130, 262_144, 768, 128, 0),
+            (True, 33, 65_536, 100, 16, 3), (False, 7, 65_536, 100, 32, 5)]
+SELECT_KS = (10, 20, 100)  # select timings and checks; int8 searches at kf = 20
 TIMING_N = 2_000_000
 CORPUS_N = 2_000_000
 BATCH = 512
@@ -405,8 +427,21 @@ def i8_inputs(torch, gen, n, b, block, dev):
     return q, codes, scale, valid
 
 
+def int_mm_ms(torch, q, codes) -> tuple[float | None, str]:
+    """The GEMM alone at the int8 kernel's shape, ``torch._int_mm(q,
+    codes.t())`` (it writes all B x N int32 dots): mean ms of 10, or None
+    and the reason when this torch build refuses the shape."""
+    gemm = lambda: torch._int_mm(q, codes.t())  # noqa: E731
+    try:
+        gemm()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:  # a yardstick the port never calls: reported, not fatal
+        return None, f"refused: {str(exc).splitlines()[0]}"
+    return cuda_ms(gemm, 10), "CUDA events, mean of 10"
+
+
 def phase_kernel_i8(torch, smi8, dev) -> dict:
-    phase("kernel against its plain version: subtile_max_i8 (exact)")
+    phase("kernel against its plain version: subtile_max_i8 (s8 wgmma, exact)")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     max_err = 0.0
     for block, b in I8_CASES:
@@ -423,9 +458,34 @@ def phase_kernel_i8(torch, smi8, dev) -> dict:
         check(err == 0.0, f"int8 kernel differs from its plain version: {err}")
     del q, codes, scale, valid, got, want
 
+    for block, b, n, d, g, offset in I8_EDGES:
+        codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+        q = torch.randint(-127, 128, (b, d), generator=gen, device=dev, dtype=torch.int8)
+        scale = (torch.rand(n, generator=gen, device=dev) + 0.1) * 1e-2
+        if block:  # one scale per g-row sub-tile
+            scale = scale[::g].repeat_interleave(g)
+        valid = torch.rand(n, generator=gen, device=dev) > 0.03
+        valid[4096 : 4096 + 256] = False  # whole sub-tiles dead, at every g
+        codes[~valid] = 0
+        cv, qv = codes, q
+        if offset:  # contiguous views off a 16-byte boundary
+            cv = torch.cat([codes.new_zeros(offset), codes.flatten()])[offset:].view(codes.shape)
+            qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+        got = smi8.subtile_max_i8(qv, cv, scale, valid, g, block_scales=block)
+        torch.cuda.synchronize()
+        want = smi8.subtile_max_i8_plain(q, codes, scale, valid, g, block_scales=block)
+        same = bool(torch.equal(got, want))
+        dead = bool((got[:, 4096 // g : (4096 + 256) // g] == smi8.NEG).all())
+        report(f"int8 {'block' if block else 'per-row'} scales B={b} N={n} d={d} g={g} "
+               f"storage offset {offset}: bit-equal to plain: {same}; dead sub-tiles NEG: {dead}")
+        check(same and dead, f"int8 kernel differs from its plain version at B={b} N={n} "
+              f"d={d} g={g}")
+    del q, codes, scale, valid, got, want, cv, qv
+
     n = TIMING_N - TIMING_N % G
+    ops = 2.0 * BATCH * n * DIM
     q, codes, scale, valid = i8_inputs(torch, gen, n, BATCH, True, dev)
-    kernel = lambda: smi8.subtile_max_i8(q, codes, scale, valid, G)  # noqa: E731
+    block_k = kernel = lambda: smi8.subtile_max_i8(q, codes, scale, valid, G)  # noqa: E731
     plain = lambda: smi8.subtile_max_i8_plain(q, codes, scale, valid, G)  # noqa: E731
     got, want = kernel(), plain()
     err = float((got - want).abs().max())
@@ -435,11 +495,12 @@ def phase_kernel_i8(torch, smi8, dev) -> dict:
     check(err == 0.0, f"int8 kernel differs from its plain version at N={n}: {err}")
     del got, want
     timed = in_turns(kernel, plain, f"int8 block scales B={BATCH} N={n} d={DIM} g={G}",
-                     2.0 * BATCH * n * DIM, "TOP/s", n * DIM)
+                     ops, "TOP/s", n * DIM)
 
-    scale = (torch.rand(n, generator=gen, device=dev) + 0.1) * 1e-2  # per-row scales
-    kernel = lambda: smi8.subtile_max_i8(q, codes, scale, valid, G, block_scales=False)  # noqa: E731
-    plain = lambda: smi8.subtile_max_i8_plain(q, codes, scale, valid, G, block_scales=False)  # noqa: E731
+    row_scale = (torch.rand(n, generator=gen, device=dev) + 0.1) * 1e-2
+    kernel = lambda: smi8.subtile_max_i8(q, codes, row_scale, valid, G, block_scales=False)  # noqa: E731
+    plain = lambda: smi8.subtile_max_i8_plain(q, codes, row_scale, valid, G,  # noqa: E731
+                                              block_scales=False)
     got, want = kernel(), plain()
     err = float((got - want).abs().max())
     max_err = max(max_err, err)
@@ -448,13 +509,122 @@ def phase_kernel_i8(torch, smi8, dev) -> dict:
     check(err == 0.0, f"int8 per-row kernel differs from its plain version at N={n}: {err}")
     del got, want
     per_row = in_turns(kernel, plain, f"int8 per-row scales B={BATCH} N={n} d={DIM} g={G}",
-                       2.0 * BATCH * n * DIM, "TOP/s", n * DIM)
-    del q, codes, scale, valid
+                       ops, "TOP/s", n * DIM)
+    # the GEMM alone (it writes all B x N int32 dots: not this function,
+    # so not library_ms), in turns with both modes of the kernel
+    gemm_ms, how = int_mm_ms(torch, q, codes)
+    b1, r1 = cuda_ms(block_k, 10), cuda_ms(kernel, 10)
+    gemm2, _ = int_mm_ms(torch, q, codes)
+    b2, r2 = cuda_ms(block_k, 10), cuda_ms(kernel, 10)
+    if gemm_ms is not None:
+        gemm_ms = (gemm_ms + gemm2) / 2
+        how = f"{how}, twice in turns with the kernel; {ops / gemm_ms / 1e9:.1f} TOP/s"
+    report(f"GEMM alone, writes the dots: torch._int_mm(q, codes.t()) int8 B={BATCH} N={n} "
+           f"d={DIM}: {'not measured' if gemm_ms is None else f'{gemm_ms:.3f} ms'} ({how}); "
+           f"in turns the kernel block {b1:.3f} / {b2:.3f} ms, per-row {r1:.3f} / {r2:.3f} ms")
+    del q, codes, scale, row_scale, valid
     torch.cuda.empty_cache()
     nbytes = n * DIM + n + 4 * n + BATCH * DIM + 4 * BATCH * (n // G)
-    return {"max_abs_err": max_err, **timed,
-            **bound(2.0 * BATCH * n * DIM, H100_INT8_PEAK, nbytes), "library_ms": None,
+    return {"max_abs_err": max_err, **timed, **bound(ops, H100_INT8_PEAK, nbytes),
+            "library_ms": None, "gemm_alone_ms": gemm_ms,
             "per_row_ms": per_row["ms"], "per_row_plain_ms": per_row["plain_ms"]}
+
+
+def select_equal(torch, got, want, c: int) -> bool:
+    """Live picks, flags and residuals equal; every pick in range and the
+    picks of a row distinct (the kernel never re-picks)."""
+    (gi, gl, gr), (wi, wl, wr) = got, want
+    srt = torch.sort(gi, dim=1).values
+    return (torch.equal(gl, wl) and torch.equal(torch.where(wl, gi, -1), torch.where(wl, wi, -1))
+            and torch.equal(gr, wr) and int(gi.min()) >= 0 and int(gi.max()) < c
+            and bool((srt[:, 1:] != srt[:, :-1]).all()))
+
+
+def tie_slab(b: int, c: int, k: int, seed: int) -> np.ndarray:
+    """(B, C) f32 sub-tile maxima, one pattern a row (row index mod 6):
+    random with 3% dead entries; more ties at the k-th value than slots;
+    -0.0 beside +0.0 around the k-th; all NEG; half NEG; three live."""
+    rng = np.random.default_rng(seed)
+    neg = np.float32(-3.0e38)
+    x = rng.uniform(-0.2, 0.9, (b, c)).astype(np.float32)
+    for r in range(b):
+        kind = r % 6
+        if kind == 0:
+            x[r, rng.random(c) < 0.03] = neg
+        elif kind == 1:
+            x[r] = rng.uniform(-0.5, 0.4, c)
+            x[r, rng.choice(c, min(c, 3 * k + 2), replace=False)] = 0.5
+            x[r, rng.choice(c, k // 2, replace=False)] = 0.75
+        elif kind == 2:
+            x[r] = rng.uniform(-1.0, -0.1, c)
+            zeros = rng.choice(c, min(c, 2 * k + 4), replace=False)
+            x[r, zeros] = np.where(np.arange(len(zeros)) % 2, np.float32(-0.0), np.float32(0.0))
+            x[r, rng.choice(c, k // 3, replace=False)] = 0.25
+        elif kind == 3:
+            x[r] = neg
+        elif kind == 4:
+            x[r, : c // 2] = neg
+        else:
+            x[r] = neg
+            x[r, rng.choice(c, 3, replace=False)] = rng.uniform(0.1, 0.9, 3)
+    return x
+
+
+def phase_select(torch, sm, ss, dev) -> dict:
+    """The select kernel against the plain tournament on a real slab (a
+    B=512 batch's sub-tile maxima over 2M rows) and a constructed one,
+    then timed in turns against it and beside torch.topk."""
+    n = TIMING_N - TIMING_N % G
+    c = n // G
+    phase(f"kernel against its plain version: subtile_select, B={BATCH} C={c}, "
+          f"k in {SELECT_KS}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = unit_rows(gen, n, DIM, torch.bfloat16, dev)
+    valid = torch.rand(n, generator=gen, device=dev) > 0.03
+    x[~valid] = 0
+    pick = torch.randint(0, n, (BATCH,), generator=gen, device=dev)
+    q = x[pick].float() + 0.1 * torch.randn((BATCH, DIM), generator=gen, device=dev)
+    q = (q / torch.linalg.norm(q, dim=1, keepdim=True)).to(torch.bfloat16)
+    real = sm.subtile_max(q, x, valid, G)
+    del x, valid, q
+    torch.cuda.empty_cache()
+    ties = torch.from_numpy(tie_slab(BATCH, c, max(SELECT_KS), SEED)).to(dev)
+    max_err = 0.0
+    for name, slab in (("real", real), ("constructed", ties)):
+        for k in SELECT_KS:
+            got = ss.iterative_argmax_resid(slab, k)
+            torch.cuda.synchronize()
+            want = ss.iterative_argmax_resid_plain(slab, k)
+            same = select_equal(torch, got, want, c)
+            max_err = max(max_err, float((got[2] - want[2]).abs().max()))
+            live = int(got[1].sum())
+            report(f"select {name} slab B={BATCH} C={c} k={k}: live picks, flags and "
+                   f"residuals equal to the plain tournament's: {same} ({live} of "
+                   f"{BATCH * k} picks live)")
+            check(same, f"subtile_select differs from its plain version ({name}, k={k})")
+    del ties
+
+    out, times = {}, []
+    for k in SELECT_KS:
+        kernel = lambda k=k: ss.iterative_argmax_resid(real, k)  # noqa: E731
+        plain = lambda k=k: ss.iterative_argmax_resid_plain(real, k)  # noqa: E731
+        lib = lambda k=k: torch.topk(real, k, dim=1)  # noqa: E731
+        kernel(), plain()
+        timed = in_turns(kernel, plain, f"select B={BATCH} C={c} k={k}", BATCH * c,
+                         "T entries/s", BATCH * c * 4, "of sub-tile maxima")
+        lib_ms = library_ms(lib, f"torch.topk(x, {k}, dim=1) f32 B={BATCH} C={c} (its own "
+                            f"tie order)")
+        nbytes = BATCH * c * 4 + BATCH * k * 9 + BATCH * 4
+        times.append(f"k={k} kernel {timed['ms']:.3f} / plain {timed['plain_ms']:.3f} / "
+                     f"topk {lib_ms:.3f} ms")
+        out[k] = {**timed, **bound(BATCH * c, H100_F32_PEAK, nbytes), "library_ms": lib_ms}
+    report(f"select, in turns on the real slab: " + "; ".join(times)
+           + f"; bound {out[10]['bound_ms']:.3f} ms (k=10, bytes)")
+    del real
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **out[10],
+            "k20_ms": out[20]["ms"], "k100_ms": out[100]["ms"],
+            "k20_plain_ms": out[20]["plain_ms"], "k100_plain_ms": out[100]["plain_ms"]}
 
 
 def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
@@ -755,31 +925,104 @@ def recall_at_k(got: np.ndarray, exact: np.ndarray) -> float:
     return float(np.mean([len(set(got[i]) & set(exact[i])) / K for i in range(len(exact))]))
 
 
-def run_batches(index, batches, counter):
-    """Search every batch (dispatch all, then fetch all), then time 10
-    single batches; returns (fetched, QPS, p50 ms, kernel launches)."""
+def run_batches(index, batches, counters: dict, repeats: int = 1):
+    """Search every batch (dispatch all, then fetch all) once as a warm-up,
+    then ``repeats`` timed times, then time 10 single batches; returns
+    (fetched, the sustained QPS of each timed repeat, p50 ms, the first
+    timed repeat's kernel launches by name). The warm-up's QPS and what
+    each pass grew the caching allocator's reserve by are reported: a
+    pass that grows it pays for cudaMalloc calls on the host clock."""
+    import torch
+
     from rag_arc_tpu_torch.index.flat import fetch_pair
 
-    fetch_pair(*index.search_device(batches[0], K))  # warm up
-    counter.reset()
-    t0 = time.perf_counter()
-    outs = [index.search_device(b, K) for b in batches]
-    fetched = [fetch_pair(s, p) for s, p in outs]
-    sustained_s = time.perf_counter() - t0
-    launches = counter.read()
-    qps = BATCH * len(batches) / sustained_s
+    def dispatch_all():
+        """One pass: (fetched, QPS, GiB the reserve grew, host ms spent
+        dispatching, host ms of the slowest single dispatch)."""
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        outs, slowest = [], 0.0
+        for b in batches:
+            t1 = time.perf_counter()
+            outs.append(index.search_device(b, K))
+            slowest = max(slowest, time.perf_counter() - t1)
+        dispatch = time.perf_counter() - t0
+        fetched = [fetch_pair(s, p) for s, p in outs]
+        qps = BATCH * len(batches) / (time.perf_counter() - t0)
+        return (fetched, qps, (torch.cuda.memory_reserved() - reserved) / 2**30,
+                dispatch * 1e3, slowest * 1e3)
+
+    _, warm_qps, warm_grew, _, _ = dispatch_all()
+    qps, grew, host, launches = [], [], [], {}
+    for r in range(repeats):
+        for c in counters.values():
+            c.reset()
+        fetched, q, g, disp, slow = dispatch_all()
+        qps.append(q)
+        grew.append(g)
+        host.append(f"{disp:.1f} ({slow:.1f})")
+        if r == 0:
+            launches = {name: c.read() for name, c in counters.items()}
     times = []
     for b in batches[:10]:
         t1 = time.perf_counter()
         fetch_pair(*index.search_device(b, K))
         times.append(time.perf_counter() - t1)
     p50 = float(np.percentile(times, 50)) * 1e3
-    report(f"sustained {qps:.1f} QPS ({len(batches)} x {BATCH} queries in "
-           f"{sustained_s:.3f} s, dispatch all then fetch all); p50 batch "
-           f"{p50:.3f} ms incl. readback; kernel launches {launches}")
-    check(launches >= len(batches),
-          f"kernel launched {launches} times for {len(batches)} searches")
+    spread = (max(qps) - min(qps)) / min(qps)
+    report(f"sustained {', '.join(f'{v:.1f}' for v in qps)} QPS (host clock; each "
+           f"{len(batches)} x {BATCH} queries, dispatch all then fetch all; spread "
+           f"{100 * spread:.1f}% of the lowest; reserve grown "
+           f"{', '.join(f'{v:.2f}' for v in grew)} GiB; host ms dispatching (slowest "
+           f"call) {', '.join(host)}) after an untimed warm-up pass of "
+           f"the same ({warm_qps:.1f} QPS, reserve grown {warm_grew:.2f} GiB); p50 batch "
+           f"{p50:.3f} ms incl. readback; kernel launches in the first timed run {launches}")
+    for name, n in launches.items():
+        check(n >= len(batches), f"{name} launched {n} times for {len(batches)} searches")
     return fetched, qps, p50, launches
+
+
+@contextlib.contextmanager
+def plain_select():
+    """The two-level ops with the select's plain version (the tournament)
+    in place of its kernel: with a plain producer, the all-plain pipeline
+    that the kernel path's ids are held to."""
+    from rag_arc_tpu_torch.ops import two_level as tl
+    from rag_arc_tpu_torch.ops.subtile_select import iterative_argmax_resid_plain
+
+    kernel = tl.iterative_argmax_resid
+    tl.iterative_argmax_resid = iterative_argmax_resid_plain
+    try:
+        yield
+    finally:
+        tl.iterative_argmax_resid = kernel
+
+
+def search_split(torch, ss, label: str, stages: dict, sub, k_sel: int) -> None:
+    """Device ms of one batch's search and its stages (CUDA events, mean of
+    5 after one call outside the window). ``stages`` holds "search",
+    "producer" and "select + rescore" (then any others); the select is
+    timed alone at the search's ``k_sel`` sub-tiles, and the rescore is
+    select + rescore less the select. Then the select alone at each of
+    SELECT_KS."""
+    stages = dict(stages)
+    stages["select"] = lambda: ss.iterative_argmax_resid(sub, k_sel)
+    for k in SELECT_KS:
+        stages[f"select k={k}"] = lambda k=k: ss.iterative_argmax_resid(sub, k)
+    t = {}
+    for name, fn in stages.items():
+        fn()
+        torch.cuda.synchronize()
+        t[name] = cuda_ms(fn, 5)
+    rest = [n for n in stages if n not in ("search", "producer", "select", "select + rescore")
+            and not n.startswith("select k=")]
+    report(f"{label} layers, one batch B={BATCH} (CUDA events): search {t['search']:.3f} ms; "
+           f"producer {t['producer']:.3f} ms, select (k={k_sel}) {t['select']:.3f} ms, rescore "
+           f"{t['select + rescore'] - t['select']:.3f} ms (select + rescore "
+           f"{t['select + rescore']:.3f} less the select)"
+           + "".join(f", {n} {t[n]:.3f} ms" for n in rest)
+           + "; the select alone at " + ", ".join(f"kf={k} {t[f'select k={k}']:.3f} ms"
+                                                  for k in SELECT_KS))
 
 
 class Counter:
@@ -795,7 +1038,7 @@ class Counter:
         return getattr(self.module, self.name)
 
 
-def phase_index(torch, sm, dev, data) -> None:
+def phase_index(torch, sm, ss, dev, data) -> None:
     from rag_arc_tpu_torch.index.flat import DeviceFlatIndex
     from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore
 
@@ -813,26 +1056,40 @@ def phase_index(torch, sm, dev, data) -> None:
            f"{index.capacity}, {index.stats()['hbm_bytes'] / 2**30:.2f} GiB on the card")
     check(4 * BATCH * index.capacity > index.SCORE_BYTES_BUDGET,
           "index search would not take the kernel path")
-    fetched, _, _, _ = run_batches(index, batches, Counter(sm))
+    fetched, _, _, _ = run_batches(
+        index, batches, {"subtile_max": Counter(sm), "subtile_select": Counter(ss)}, repeats=3)
 
-    for i in range(2):
-        qc = prepare_queries(batches[i], index.dtype, "cosine")
-        sub = sm.subtile_max_plain(qc, index.emb, index.valid, G)
-        _, p_plain = select_rescore(qc, index.emb, index.valid, sub, K, G)
-        same = np.array_equal(p_plain.cpu().numpy(), fetched[i][1])
-        report(f"batch {i}: ids equal to the plain producer's: {same}")
-        check(same, f"batch {i}: kernel-path ids differ from the plain producer's")
+    before = ss.launches
+    with plain_select():
+        for i in range(2):
+            qc = prepare_queries(batches[i], index.dtype, "cosine")
+            sub = sm.subtile_max_plain(qc, index.emb, index.valid, G)
+            _, p_plain = select_rescore(qc, index.emb, index.valid, sub, K, G)
+            same = np.array_equal(p_plain.cpu().numpy(), fetched[i][1])
+            report(f"batch {i}: ids equal to the all-plain pipeline's: {same}")
+            check(same, f"batch {i}: kernel-path ids differ from the all-plain pipeline's")
+    check(ss.launches == before, "the all-plain pipeline launched the select kernel")
     del sub, p_plain
 
     got = fetched[0][1][:ORACLE_QUERIES]  # batch 0's first rows are the oracle queries
     recall = recall_at_k(got, data["exact"])
     report(f"recall@10 vs f32 exact on {ORACLE_QUERIES} queries: {recall:.4f} (bar 0.99)")
     check(recall >= 0.99, f"recall@10 {recall} < 0.99")
-    del index
+
+    q = batches[0]
+    qc = prepare_queries(q, index.dtype, "cosine")
+    sub = sm.subtile_max(qc, index.emb, index.valid, G)
+    search_split(torch, ss, "bf16", {
+        "search": lambda: index.search_device(q, K),
+        "producer": lambda: sm.subtile_max(qc, index.emb, index.valid, G),
+        "select + rescore": lambda: select_rescore(qc, index.emb, index.valid, sub, K, G),
+        "query prep": lambda: prepare_queries(q, index.dtype, "cosine"),
+    }, sub, min(K, sub.shape[1]))
+    del index, sub
     torch.cuda.empty_cache()
 
 
-def phase_index_l2(torch, sm, dev, data) -> int:
+def phase_index_l2(torch, sm, ss, dev, data) -> int:
     from rag_arc_tpu_torch.index.flat import DeviceFlatIndex
     from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore
 
@@ -845,14 +1102,24 @@ def phase_index_l2(torch, sm, dev, data) -> int:
         index.add(corpus[start : start + (1 << 17)])
     check(4 * BATCH * index.capacity > index.SCORE_BYTES_BUDGET,
           "l2 search would not take the kernel path")
-    fetched, _, _, launches = run_batches(index, batches, Counter(sm, "launches_l2"))
+    fetched, _, _, launches = run_batches(
+        index, batches, {"subtile_max_l2": Counter(sm, "launches_l2"),
+                         "subtile_select": Counter(ss)})
 
     qc = prepare_queries(batches[0], index.dtype, "l2")
-    sub = sm.subtile_max_plain(qc, index.emb, index.valid, G, sqnorm=index.sqnorm)
-    _, p_plain = select_rescore(qc, index.emb, index.valid, sub, K, G, "l2", index.sqnorm)
+    with plain_select():
+        sub = sm.subtile_max_plain(qc, index.emb, index.valid, G, sqnorm=index.sqnorm)
+        _, p_plain = select_rescore(qc, index.emb, index.valid, sub, K, G, "l2", index.sqnorm)
     same = np.array_equal(p_plain.cpu().numpy(), fetched[0][1])
-    report(f"batch 0: ids equal to the plain producer's: {same}")
-    check(same, "l2 kernel-path ids differ from the plain producer's")
+    report(f"batch 0: ids equal to the all-plain pipeline's: {same}")
+    check(same, "l2 kernel-path ids differ from the all-plain pipeline's")
+    sub = sm.subtile_max(qc, index.emb, index.valid, G, sqnorm=index.sqnorm)
+    search_split(torch, ss, "l2", {
+        "search": lambda: index.search_device(batches[0], K),
+        "producer": lambda: sm.subtile_max(qc, index.emb, index.valid, G, sqnorm=index.sqnorm),
+        "select + rescore": lambda: select_rescore(qc, index.emb, index.valid, sub, K, G, "l2",
+                                                   index.sqnorm),
+    }, sub, min(K, sub.shape[1]))
     del sub, p_plain
 
     q = batches[0][:ORACLE_QUERIES]
@@ -868,14 +1135,14 @@ def phase_index_l2(torch, sm, dev, data) -> int:
     check(recall >= 0.99, f"l2 recall@10 {recall} < 0.99")
     del index, scores
     torch.cuda.empty_cache()
-    return launches
+    return launches["subtile_max_l2"]
 
 
 def resident_bytes(index) -> int:
     return sum(t.numel() * t.element_size() for t in index._arrays())
 
 
-def phase_index_i8(torch, smi8, dev, data) -> None:
+def phase_index_i8(torch, smi8, ss, dev, data) -> None:
     from rag_arc_tpu_torch.index.flat import DeviceFlatIndex, fetch_pair
     from rag_arc_tpu_torch.index.vector_store import get_tracer
     from rag_arc_tpu_torch.ops.two_level import quantize_queries, select_rescore_i8
@@ -897,54 +1164,55 @@ def phase_index_i8(torch, smi8, dev, data) -> None:
            f"encoding {quant_s:.1f} s (host clock); refine {index.refine}, kf_mult "
            f"{index.kf_mult}, gap rows {index._gap_rows}; {resident / 2**30:.3f} GiB "
            f"resident on the card (stats hbm_bytes {index.stats()['hbm_bytes']})")
-    fetched, qps, p50, _ = run_batches(index, batches, Counter(smi8))
+    fetched, qps, p50, _ = run_batches(
+        index, batches, {"subtile_max_i8": Counter(smi8), "subtile_select": Counter(ss)})
 
     kf = index._kf(K)
-    for i in range(2):
-        q_i8, qscale = quantize_queries(batches[i])
-        sub = smi8.subtile_max_i8_plain(q_i8, index.emb, index.sqnorm, index.valid, G)
-        s, p = select_rescore_i8(q_i8, qscale, index.emb, index.sqnorm, index.valid,
-                                 sub, kf, G)
-        _, p_plain = fetch_pair(*index.rescore_candidates(batches[i], s, p, K))
-        same = np.array_equal(p_plain, fetched[i][1])
-        report(f"batch {i}: ids equal to the plain producer's: {same}")
-        check(same, f"int8 batch {i}: kernel-path ids differ from the plain producer's")
+    with plain_select():
+        for i in range(2):
+            q_i8, qscale = quantize_queries(batches[i])
+            sub = smi8.subtile_max_i8_plain(q_i8, index.emb, index.sqnorm, index.valid, G)
+            s, p = select_rescore_i8(q_i8, qscale, index.emb, index.sqnorm, index.valid,
+                                     sub, kf, G)
+            _, p_plain = fetch_pair(*index.rescore_candidates(batches[i], s, p, K))
+            same = np.array_equal(p_plain, fetched[i][1])
+            report(f"batch {i}: ids equal to the all-plain pipeline's: {same}")
+            check(same, f"int8 batch {i}: kernel-path ids differ from the all-plain pipeline's")
     del sub, s, p
 
     recall = recall_at_k(fetched[0][1][:ORACLE_QUERIES], data["exact"])
     report(f"int8 recall@10 vs f32 exact on {ORACLE_QUERIES} queries: {recall:.4f} "
-           f"(bar 0.99); {qps:.1f} QPS, p50 {p50:.3f} ms")
+           f"(bar 0.99); {qps[0]:.1f} QPS, p50 {p50:.3f} ms")
     check(recall >= 0.99, f"int8 recall@10 {recall} < 0.99")
 
     q = batches[0]
     q_i8, qscale = quantize_queries(q)
     sub = smi8.subtile_max_i8(q_i8, index.emb, index.sqnorm, index.valid, G)
     s, p = select_rescore_i8(q_i8, qscale, index.emb, index.sqnorm, index.valid, sub, kf, G)
-    layers = {
+    search_split(torch, ss, f"int8 (kf={kf})", {
         "search": lambda: index.search_device(q, K),
-        "query quantization": lambda: quantize_queries(q),
-        "kernel": lambda: smi8.subtile_max_i8(q_i8, index.emb, index.sqnorm, index.valid, G),
-        "select + int8 rescore": lambda: select_rescore_i8(
+        "producer": lambda: smi8.subtile_max_i8(q_i8, index.emb, index.sqnorm, index.valid, G),
+        "select + rescore": lambda: select_rescore_i8(
             q_i8, qscale, index.emb, index.sqnorm, index.valid, sub, kf, G),
+        "query quantization": lambda: quantize_queries(q),
         "refined rescore": lambda: index.rescore_candidates(q, s, p, K),
-    }
-    report(f"int8 layers, one batch B={BATCH} (CUDA events): " + ", ".join(
-        f"{name} {cuda_ms(fn, 5):.3f} ms" for name, fn in layers.items()))
+    }, sub, min(kf, sub.shape[1]))
     del sub, s, p
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before = smi8.launches
+    before = (smi8.launches, ss.launches)
     one = torch.from_numpy(data["queries"][:1]).to(dev)
     fetch_pair(*index.search_device(one, K))
     peak = torch.cuda.max_memory_allocated()
+    took = (smi8.launches, ss.launches) == (before[0] + 1, before[1] + 1)
     report(f"B=1 search: peak {peak / 2**30:.3f} GiB allocated against "
            f"{resident / 2**30:.3f} GiB resident (+{(peak - base) / 2**20:.1f} MiB over "
-           f"what was allocated before it); took the kernel path: "
-           f"{smi8.launches == before + 1}")
-    check(smi8.launches == before + 1, "B=1 int8 search did not launch the kernel")
+           f"what was allocated before it); took the kernel path (one producer and one "
+           f"select launch): {took}")
+    check(took, "B=1 int8 search did not launch the producer and the select kernel once")
     check(peak <= resident + 2**30, "B=1 int8 search peaked above resident + 1 GiB")
     del index
     torch.cuda.empty_cache()
@@ -962,7 +1230,7 @@ def make_docs(rng) -> list[str]:
     return [" ".join(words[e - n : e]) for n, e in zip(lens, ends)]
 
 
-def layer_times(torch, sm, store, emb, batch_texts) -> None:
+def layer_times(torch, sm, ss, store, emb, batch_texts) -> None:
     """Device time of each layer of one B=512 query batch (CUDA events)."""
     from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore
 
@@ -981,13 +1249,15 @@ def layer_times(torch, sm, store, emb, batch_texts) -> None:
     enc = cuda_ms(lambda: emb.encode_device(ids_d, mask_d), 5)
     search = cuda_ms(lambda: index.search_device(q, K), 5)
     kern = cuda_ms(lambda: sm.subtile_max(qc, index.emb, index.valid, G), 5)
-    sel = cuda_ms(lambda: select_rescore(qc, index.emb, index.valid, sub, K, G), 5)
+    sel = cuda_ms(lambda: ss.iterative_argmax_resid(sub, K), 5)
+    sel_res = cuda_ms(lambda: select_rescore(qc, index.emb, index.valid, sub, K, G), 5)
     report(f"layers, one batch B={BATCH} L={length}: tokenize {tok_ms:.2f} ms (host), "
            f"encoder {enc:.3f} ms, search {search:.3f} ms = sub-tile-max kernel "
-           f"{kern:.3f} ms + select/rescore {sel:.3f} ms + query prep (CUDA events)")
+           f"{kern:.3f} ms + select {sel:.3f} ms + rescore {sel_res - sel:.3f} ms (select + "
+           f"rescore {sel_res:.3f} less the select) + query prep (CUDA events)")
 
 
-def phase_end_to_end(torch, sm, dev):
+def phase_end_to_end(torch, sm, ss, dev):
     from rag_arc_tpu_torch.index.vector_store import Document, TorchVectorStore, get_tracer
     from rag_arc_tpu_torch.models.encoder import TransformerConfig
     from rag_arc_tpu_torch.models.torch_embeddings import TorchEncoderEmbeddings
@@ -1000,7 +1270,7 @@ def phase_end_to_end(torch, sm, dev):
     ids = [f"d{i}" for i in range(N_DOCS)]
     emb = TorchEncoderEmbeddings(cfg, seed=SEED, device=dev)
 
-    sm.launches = 0
+    sm.launches = ss.launches = 0
     t0 = time.perf_counter()
     store = TorchVectorStore.from_texts(
         texts, emb, ids=ids, capacity=STORE_CAPACITY, dtype=torch.bfloat16, device=dev
@@ -1054,21 +1324,23 @@ def phase_end_to_end(torch, sm, dev):
     report(f"retriever.invoke: {N_SINGLE} single queries, {single_ms:.2f} ms each, "
            f"source first in {found}/{N_SINGLE}")
     check(found >= N_SINGLE - 1, f"retriever found {found}/{N_SINGLE} sources first")
-    launches = sm.launches  # read before the layer timing below launches more
+    launches = {"subtile_max": sm.launches, "subtile_select": ss.launches}  # before the
+    # layer timing below launches more
     report(f"kernel launches in the end-to-end run: {launches}")
-    check(launches >= E2E_BATCHES, f"kernel launched {launches} times end to end")
-    layer_times(torch, sm, store, emb, [texts[i] for i in picks[:BATCH]])
+    for name, n in launches.items():
+        check(n >= E2E_BATCHES, f"{name} launched {n} times end to end")
+    layer_times(torch, sm, ss, store, emb, [texts[i] for i in picks[:BATCH]])
     return launches, emb, texts, store
 
 
-def phase_end_to_end_i8(torch, smi8, dev, emb, texts) -> int:
+def phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts) -> int:
     from rag_arc_tpu_torch.index.persistence import load_store, save_store
     from rag_arc_tpu_torch.index.vector_store import Document, TorchVectorStore
 
     phase(f"end to end, int8: the same encoder, {I8_DOCS} documents, capacity "
           f"{STORE_CAPACITY}, then a snapshot round trip")
     docs, ids = texts[:I8_DOCS], [f"d{i}" for i in range(I8_DOCS)]
-    smi8.launches = 0
+    smi8.launches = ss.launches = 0
     t0 = time.perf_counter()
     store = TorchVectorStore.from_texts(
         docs, emb, ids=ids, capacity=STORE_CAPACITY, dtype=torch.int8, device=dev
@@ -1108,10 +1380,11 @@ def phase_end_to_end_i8(torch, smi8, dev, emb, texts) -> int:
     launches = smi8.launches
     report(f"retriever.invoke: {I8_SINGLE} single queries, source first in "
            f"{found}/{I8_SINGLE}; int8 kernel launches: batch {batch_launches}, "
-           f"batch + retriever {launches}")
+           f"batch + retriever {launches}; select kernel launches {ss.launches}")
     check(found >= I8_SINGLE - 1, f"int8 retriever found {found}/{I8_SINGLE} sources first")
     check(launches >= batch_launches + I8_SINGLE,
           "the int8 kernel did not launch on the retriever path")
+    check(ss.launches >= 1 + I8_SINGLE, "the select kernel did not launch on every int8 search")
 
     snap_root = ROOT / "rag_arc_tpu_torch" / "_build"
     snap_root.mkdir(parents=True, exist_ok=True)
@@ -1568,6 +1841,7 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import rope_prep as rp
     from rag_arc_tpu_torch.ops import subtile_max_i8 as smi8
     from rag_arc_tpu_torch.ops import subtile_max_piped as smp
+    from rag_arc_tpu_torch.ops import subtile_select as ss
     from rag_arc_tpu_torch.ops import fused_mips as fm
     from rag_arc_tpu_torch.ops import corpus_stream as cst
 
@@ -1575,9 +1849,10 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         phase_environment(torch)
-        phase_build([sm, smi8, rp, fa, smp, fm, cst])
+        phase_build([sm, smi8, ss, rp, fa, smp, fm, cst])
         kernel, kernel_l2 = phase_kernel(torch, sm, dev)
         kernel_i8 = phase_kernel_i8(torch, smi8, dev)
+        kernel_select = phase_select(torch, sm, ss, dev)
         kernel_rope = phase_rope(torch, rp, dev)
         kernel_flash = phase_flash(torch, fa, dev)
         kernel_piped = phase_kernel_piped(torch, sm, smi8, smp, dev)
@@ -1585,12 +1860,12 @@ def main() -> int:
         kernel_stream = phase_kernel_stream(torch, cst, dev)
         probe_launches = phase_probe(torch, smp, fm, cst, dev)
         data = make_index_data(torch, dev)
-        phase_index(torch, sm, dev, data)
-        l2_launches = phase_index_l2(torch, sm, dev, data)
-        phase_index_i8(torch, smi8, dev, data)
+        phase_index(torch, sm, ss, dev, data)
+        l2_launches = phase_index_l2(torch, sm, ss, dev, data)
+        phase_index_i8(torch, smi8, ss, dev, data)
         del data
-        e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, dev)
-        i8_launches = phase_end_to_end_i8(torch, smi8, dev, emb, texts)
+        e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, ss, dev)
+        i8_launches = phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts)
         qwen3, qwen3_ref = phase_rerank_model(torch, rp, fa, dev)
         rope_launches, flash_launches = phase_rerank_e2e(
             torch, rp, fa, dev, store, texts, qwen3, qwen3_ref)
@@ -1604,7 +1879,7 @@ def main() -> int:
         {"name": "subtile_max", "route": "cuda", "source": src + "subtile_max.cu",
          "replaces": "rag_arc_tpu/ops/two_level_stream.py:140",
          "also_replaces": "rag_arc_tpu/ops/two_level.py:89",
-         "launches": e2e_launches, **kernel},
+         "launches": e2e_launches["subtile_max"], **kernel},
         {"name": "subtile_max_l2", "route": "cuda", "source": src + "subtile_max.cu",
          "replaces": "rag_arc_tpu/ops/two_level.py:59",
          "launches": l2_launches, **kernel_l2},
@@ -1613,6 +1888,9 @@ def main() -> int:
          "also_replaces": ["rag_arc_tpu/ops/two_level_stream.py:140 (int8 mode)",
                            "rag_arc_tpu/ops/two_level.py:109"],
          "launches": i8_launches, **kernel_i8},
+        {"name": "subtile_select", "route": "cuda", "source": src + "subtile_select.cu",
+         "replaces": "rag_arc_tpu/ops/two_level.py:416 (XLA program, no Pallas)",
+         "launches": e2e_launches["subtile_select"], **kernel_select},
         {"name": "rope_prep", "route": "cuda", "source": src + "rope_prep.cu",
          "replaces": "rag_arc_tpu/ops/rope_prep.py:52",
          "launches": rope_launches, **kernel_rope},

@@ -77,15 +77,16 @@ def subtile_max_plain(
 
 
 def tma_operands(queries: torch.Tensor, corpus: torch.Tensor):
-    """The bf16 operands as the kernel's TMA loads need them: bases on a
-    16-byte boundary and rows of a multiple of 8 elements (16 bytes). An
-    operand that is not (a view with a storage offset, d % 8 != 0) is
-    copied into fresh storage, zero-padded in d to a multiple of 8: zero
-    columns leave every dot product unchanged. This is a copy, not a
+    """The operands as the kernels' TMA loads need them: bases on a
+    16-byte boundary and rows of a multiple of 16 bytes (8 bf16, 16
+    int8). An operand that is not (a view with a storage offset, a width
+    off that multiple) is copied into fresh storage, zero-padded in d:
+    zero columns leave every dot product unchanged. This is a copy, not a
     fallback: the kernel still runs. The index's own storage (d = 768, its
     own allocation) goes through as it is."""
     d = corpus.shape[1]
-    width = -(-d // 8) * 8
+    per = 16 // corpus.element_size()
+    width = -(-d // per) * per
 
     def fit(t: torch.Tensor) -> torch.Tensor:
         if width == d and t.data_ptr() % 16 == 0:

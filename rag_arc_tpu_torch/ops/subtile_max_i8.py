@@ -5,8 +5,9 @@ Counterpart of the JAX package's int8 producers:
 scales), ``_subtile_max_kernel_i8`` (per-row scales) and the int8 mode of
 ``two_level_stream.py::_stream_kernel`` (whose role, with its certificate,
 the masked block mode takes). On the card it runs the hand-written CUDA
-kernel ``csrc/subtile_max_i8.cu`` (int8 × int8 → int32 on the tensor
-cores); on the CPU it runs :func:`subtile_max_i8_plain`.
+kernel ``csrc/subtile_max_i8.cu`` (s8 ``wgmma`` on TMA-loaded tiles,
+int8 × int8 → int32 on the tensor cores); on the CPU it runs
+:func:`subtile_max_i8_plain`.
 
 Every step is exact for d ≤ 1040 (|dot| ≤ d·127² < 2²⁴, so raw dots
 convert to f32 exactly), so kernel and plain version agree bit for bit.
@@ -21,7 +22,13 @@ import functools
 import torch
 
 from rag_arc_tpu_torch.ops._build import Built, build
-from rag_arc_tpu_torch.ops.subtile_max import KERNEL_MAX_G, NEG, SUPPORTED_G, widen_g
+from rag_arc_tpu_torch.ops.subtile_max import (
+    KERNEL_MAX_G,
+    NEG,
+    SUPPORTED_G,
+    tma_operands,
+    widen_g,
+)
 
 MASK_I32 = -(1 << 30)  # raw-dot sentinel of a dead row (block mode)
 
@@ -118,7 +125,9 @@ def subtile_max_i8(
     ``block_scales=True`` asserts that every g-row sub-tile shares one
     scale. CPU tensors take :func:`subtile_max_i8_plain`; CUDA tensors
     launch the kernel on the current stream or raise (g = 256 from the
-    g = 128 kernel and a pairwise max, as in ``subtile_max``)."""
+    g = 128 kernel and a pairwise max, as in ``subtile_max``). Codes that
+    TMA cannot describe (a view off a 16-byte boundary, d % 16 != 0) are
+    copied first (``subtile_max.tma_operands``)."""
     global launches
     _check(q_i8, codes, scale, valid, g)
     if codes.device.type == "cpu":
@@ -138,6 +147,8 @@ def subtile_max_i8(
     out = torch.empty((b, n // kg), dtype=torch.float32, device=codes.device)
     if b == 0 or n == 0:
         return widen_g(out, g, kg)
+    q_i8, codes = tma_operands(q_i8, codes)
+    d = codes.shape[1]
     fn = load().lib.subtile_max_i8_launch
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -9,7 +9,9 @@
         ``ops/subtile_max_piped.py`` (cosine/ip; int8 with block scales);
       "scan": :func:`subtile_max_scan`, plain torch over row tiles.
     Every producer is masked, so every producer gives the same ids.
-  select: each query's top-k sub-tiles by max (``iterative_argmax_resid``).
+  select: each query's top-k sub-tiles by max (``iterative_argmax_resid``:
+    on the card one launch of ``csrc/subtile_select.cu``, see
+    ``ops/subtile_select.py``).
   pass 2: gather those k·g rows, rescore them exactly, final top-k.
 
 Exactness: a row of the true top-k lies in a sub-tile whose max is at
@@ -46,6 +48,7 @@ import torch.nn.functional as F
 from rag_arc_tpu_torch.ops.subtile_max import NEG, subtile_max, subtile_max_plain
 from rag_arc_tpu_torch.ops.subtile_max_i8 import subtile_max_i8, subtile_max_i8_plain
 from rag_arc_tpu_torch.ops.subtile_max_piped import subtile_max_piped
+from rag_arc_tpu_torch.ops.subtile_select import iterative_argmax_resid
 from rag_arc_tpu_torch.ops.topk import stable_topk
 
 # -- quantization -------------------------------------------------------------
@@ -198,52 +201,6 @@ def produce(
 
 
 # -- select -------------------------------------------------------------------
-
-
-def iterative_argmax_resid(x: torch.Tensor, k: int, chunk: int = 512):
-    """Indices of the k largest entries per row (score-descending, ties
-    toward the lower index), a liveness flag per pick, and the row-max of
-    the unselected remainder.
-
-    A hierarchical tournament, ported literally: one pass builds per-chunk
-    (max, argmax); each of the k steps reads the (B, n_chunks) summary,
-    re-reads the one chunk it picked from with every earlier pick in it
-    masked, and writes that chunk's new (max, argmax) back.
-    ``torch.argmax`` returns the first maximal index, which keeps the
-    reference's tie order."""
-    b, c = x.shape
-    w = min(chunk, c)
-    if c % w:
-        for cand in (512, 256, 128):
-            if cand <= chunk and c % cand == 0:
-                w = cand
-                break
-    n_chunks = -(-c // w)
-    c_pad = n_chunks * w
-    if c_pad != c:
-        x = F.pad(x, (0, c_pad - c), value=NEG)
-    xc = x.reshape(b, n_chunks, w)
-    cmax = torch.amax(xc, dim=2)
-    carg = torch.argmax(xc, dim=2)
-    rows = torch.arange(b, device=x.device)
-    in_chunk = torch.arange(w, device=x.device)[None, :]
-    picked = torch.full((b, k), -1, dtype=torch.int64, device=x.device)
-    lives = []
-    for j in range(k):
-        bc = torch.argmax(cmax, dim=1)
-        best = cmax[rows, bc]
-        # exhausted rows re-pick sentinel positions; clamp so gathers stay
-        # in range (the liveness flag marks them dead either way)
-        idx = torch.clamp(carg[rows, bc] + bc * w, max=c - 1)
-        picked[:, j] = idx
-        vals = xc[rows, bc, :]
-        cols = bc[:, None] * w + in_chunk
-        hit = torch.any(cols[:, None, :] == picked[:, :, None], dim=1)
-        vals = torch.where(hit, NEG, vals)
-        cmax[rows, bc] = torch.amax(vals, dim=1)
-        carg[rows, bc] = torch.argmax(vals, dim=1)
-        lives.append(best > NEG * 0.5)
-    return picked, torch.stack(lives, dim=1), torch.amax(cmax, dim=1)
 
 
 def _candidates(sub_max: torch.Tensor, k: int, g: int):

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (sub-tile max bf16/f32 with
-its l2 mode, int8, rope_prep, flash attention, the pipelined producer,
-the fused top-k and the corpus stream): each kernel against its
-plain PyTorch version at small shapes (int8 bit for bit), offset views,
+its l2 mode, int8, the sub-tile select, rope_prep, flash attention, the
+pipelined producer, the fused top-k and the corpus stream): each kernel
+against its plain PyTorch version at small shapes (int8 bit for bit; the
+select's live picks, flags and residuals exactly), offset views,
 padded d, ragged lengths and query blocks, g up to 256, dead sub-tiles,
 KV heads shared by 1-8 query heads, ``out=`` views, the launch counts,
 the wrappers' refusals, and small Qwen3 forwards through both attention
@@ -27,6 +28,7 @@ from rag_arc_tpu_torch.ops import fused_mips as fm
 from rag_arc_tpu_torch.ops import subtile_max as sm
 from rag_arc_tpu_torch.ops import subtile_max_i8 as smi8
 from rag_arc_tpu_torch.ops import subtile_max_piped as smp
+from rag_arc_tpu_torch.ops import subtile_select as ss
 from rag_arc_tpu_torch.ops.two_level import quantize_rows_blocked, two_level_topk
 from rag_arc_tpu_torch.ops.topk import masked_topk
 
@@ -217,6 +219,42 @@ def test_i8_kernel_on_offset_views(cuda, offset):
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("block", [True, False])
+@pytest.mark.parametrize("b", [1, 7, 128, 130, 512])
+@pytest.mark.parametrize("g", [16, 32, 64, 128, 256])
+def test_i8_kernel_wide_g_and_dead_subtiles(cuda, block, b, g):
+    """The s8 wgmma kernel bit for bit: 128- and 256-query blocks, ragged
+    ones (B = 130), g up to 256 (served from g = 128 maxima), N off a
+    128-row tile where g allows it, and whole dead sub-tiles."""
+    n = 4096 + (32 if g <= 32 else 256)
+    q, codes, scale, valid = _i8_inputs(n, 96, b, cuda, block, seed=6)
+    if block:  # block mode asserts one scale per g-row sub-tile
+        scale = scale[::g].repeat_interleave(g)
+    valid[512:1024] = False
+    codes[~valid] = 0
+    before = smi8.launches
+    got = smi8.subtile_max_i8(q, codes, scale, valid, g, block_scales=block)
+    torch.cuda.synchronize()
+    assert smi8.launches == before + 1
+    want = smi8.subtile_max_i8_plain(q, codes, scale, valid, g, block_scales=block)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert (got[:, 512 // g : 1024 // g] == smi8.NEG).all()
+
+
+@pytest.mark.parametrize("block", [True, False])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_i8_kernel_on_padded_and_offset_operands(cuda, block, offset):
+    """d = 100 (the wrapper's zero-padding copy to 112) and a base off 16
+    bytes (its aligning copy), in both modes, bit for bit."""
+    q, codes, scale, valid = _i8_inputs(2048, 100, 130, cuda, block, seed=7)
+    qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+    cv = torch.cat([codes.new_zeros(offset), codes.flatten()])[offset:].view(codes.shape)
+    got = smi8.subtile_max_i8(qv, cv, scale, valid, 16, block_scales=block)
+    torch.cuda.synchronize()
+    want = smi8.subtile_max_i8_plain(q, codes, scale, valid, 16, block_scales=block)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 def test_i8_all_dead_subtile_and_launch_count(cuda):
     q, codes, scale, valid = _i8_inputs(1024, 64, 4, cuda)
     valid[32:48] = False
@@ -266,6 +304,107 @@ def test_i8_blocked_codes_on_card(cuda):
             torch.ones(2048, dtype=torch.bool, device=cuda), 16)
     torch.testing.assert_close(smi8.subtile_max_i8(*args), smi8.subtile_max_i8_plain(*args),
                                atol=0, rtol=0)
+
+
+# -- sub-tile select ------------------------------------------------------------------
+
+
+def _select_slab(b, c, k, device, seed=0):
+    """(B, C) f32 rows of sub-tile maxima, one pattern a row (by row index
+    mod 6): random with ~3% dead (NEG) entries; more ties at the k-th
+    value than slots; -0.0 beside +0.0 around the k-th; all NEG; half
+    NEG; three live entries."""
+    rng = np.random.default_rng(seed)
+    neg = np.float32(ss.NEG)
+    x = rng.uniform(-0.2, 0.9, (b, c)).astype(np.float32)
+    for r in range(b):
+        kind = r % 6
+        if kind == 0:
+            x[r, rng.random(c) < 0.03] = neg
+        elif kind == 1:
+            x[r] = rng.uniform(-0.5, 0.4, c)
+            x[r, rng.choice(c, min(c, 3 * k + 2), replace=False)] = 0.5
+            x[r, rng.choice(c, k // 2, replace=False)] = 0.75
+        elif kind == 2:
+            x[r] = rng.uniform(-1.0, -0.1, c)
+            zeros = rng.choice(c, min(c, 2 * k + 4), replace=False)
+            x[r, zeros] = np.where(np.arange(len(zeros)) % 2, np.float32(-0.0), np.float32(0.0))
+            x[r, rng.choice(c, k // 3, replace=False)] = 0.25
+        elif kind == 3:
+            x[r] = neg
+        elif kind == 4:
+            x[r, : c // 2] = neg
+        else:
+            x[r] = neg
+            x[r, rng.choice(c, min(c, 3), replace=False)] = rng.uniform(0.1, 0.9, min(c, 3))
+    return torch.from_numpy(x).to(device)
+
+
+def _select_equal(got, want, c):
+    """Live picks, flags and residuals equal; every pick in range and the
+    picks of a row distinct (the kernel never re-picks)."""
+    (gi, gl, gr), (wi, wl, wr) = got, want
+    torch.testing.assert_close(gl, wl, atol=0, rtol=0)
+    torch.testing.assert_close(torch.where(wl, gi, -1), torch.where(wl, wi, -1), atol=0, rtol=0)
+    torch.testing.assert_close(gr, wr, atol=0, rtol=0)
+    assert int(gi.min()) >= 0 and int(gi.max()) < c
+    srt = torch.sort(gi, dim=1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all())
+
+
+@pytest.mark.parametrize("b", [1, 7, 512])
+@pytest.mark.parametrize("c,k", [(1000, 1), (1000, 10), (1000, 20), (1000, 100), (1000, 1000),
+                                 (125_000, 1), (125_000, 10), (125_000, 20), (125_000, 100)])
+def test_select_kernel_equals_plain(cuda, b, c, k):
+    x = _select_slab(b, c, k, cuda, seed=c + k)
+    before = ss.launches
+    got = ss.iterative_argmax_resid(x, k)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    _select_equal(got, ss.iterative_argmax_resid_plain(x, k), c)
+    assert ss.launches == before + 1
+
+
+@pytest.mark.parametrize("c,k", [(9000, 4095), (9000, 4096), (9000, 9000), (125_000, 125_000)])
+def test_select_kernel_large_k(cuda, c, k):
+    """k past the shared-memory buffer: each row sorted whole in a global
+    scratch. Held against a stable descending sort (the plain tournament
+    would take k steps), -0.0 keyed as +0.0 by adding 0.0."""
+    x = _select_slab(7, c, k, cuda, seed=k)
+    gi, gl, gr = ss.iterative_argmax_resid(x, k)
+    order = torch.sort(x + 0.0, dim=1, descending=True, stable=True)
+    wl = order.values[:, :k] > ss.NEG * 0.5
+    want_r = (torch.clamp(order.values[:, k], min=ss.NEG) if k < c
+              else torch.full((7,), ss.NEG, device=cuda))
+    _select_equal((gi, gl, gr), (order.indices[:, :k], wl, want_r), c)
+
+
+def test_select_kernel_on_a_real_slab_and_refusals(cuda):
+    """The select on a producer's output, then the wrapper's refusals."""
+    q, x, valid = _inputs(32768, 64, 33, torch.bfloat16, cuda, seed=8)
+    sub = sm.subtile_max(q, x, valid, 16)
+    for k in (10, 20, 100):
+        _select_equal(ss.iterative_argmax_resid(sub, k), ss.iterative_argmax_resid_plain(sub, k),
+                      sub.shape[1])
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.iterative_argmax_resid(sub.T.contiguous().T, 10)
+    with pytest.raises(ValueError, match="float32"):
+        ss.iterative_argmax_resid(sub.half(), 10)
+    with pytest.raises(ValueError, match="k must"):
+        ss.iterative_argmax_resid(sub, 0)
+    with pytest.raises(ValueError, match="k must"):
+        ss.iterative_argmax_resid(sub, sub.shape[1] + 1)
+
+
+@pytest.mark.parametrize("k", [10, 50])
+def test_two_level_launches_select_once(cuda, k):
+    q, x, valid = _inputs(8192, 64, 33, torch.bfloat16, cuda, seed=9)
+    before = ss.launches
+    s1, p1 = two_level_topk(q.float(), x, valid, k)
+    assert ss.launches == before + 1
+    s2, p2 = masked_topk(q.float(), x, valid, k)
+    torch.testing.assert_close(p1, p2, atol=0, rtol=0)
+    torch.testing.assert_close(s1, s2, atol=1e-5, rtol=0)
 
 
 # -- rope_prep --------------------------------------------------------------------
