@@ -37,6 +37,22 @@ Phases, each printing its own lines and times:
        included), and L in {64, 130, 200, 300}, D = 64, KV heads shared by
        2 or 3 query heads, f32, and ``out=`` a (B, L, H, D) buffer; timed
        in turns at the reranker shape (16/8 heads) beside SDPA;
+     - ``subtile_max_piped`` (the warpgroup ping-pong): bf16 B in {1, 7,
+       512}, f32 B = 64, int8 B in {7, 512}; its edges (B = 130, g = 64
+       and 128/256 served from g = 64, d = 100 on offset views, dead
+       sub-tiles); at N = 2M timed in turns against its plain version and
+       against ``subtile_max.cu`` / ``subtile_max_i8.cu`` (int8 equal);
+     - ``fused_mips_topk`` (``wgmma`` with a threshold filter): cosine,
+       ip and l2 at B in {1, 7, 130, 256, 257, 512}, k in {1, 10, 100,
+       128}, every skip/packed pair, ids equal up to ties at the k-th
+       score; integer data bit for bit (d = 100 on an offset view, fewer
+       live rows than k); at the probe's 2,002,944 rows timed in turns
+       against its plain version and beside the GEMM alone and the GEMM
+       plus ``torch.topk`` (yardsticks);
+     - ``corpus_stream`` exactly, timed beside ``torch.amax``;
+     then the kernel probe (``tools/kernel_probe.py``) at 2,000,000 x 768,
+     B = 512: every config runs, recall@10 >= 0.99, the piped and scan
+     producers' ids held to the stream producer's up to k-th-score ties;
   4. index: a 2,000,000 x 768 corpus, its queries and their f32 exact
      top-10 oracle, shared by three indexes, each searched in batches of
      512 queries (k = 10) with ids checked against the all-plain
@@ -143,8 +159,24 @@ H100_HBM = 3.35e12  # HBM3 bytes/s, the same sheet
 # (tile_n 2048 as the probe's fused config) and the corpus stream
 PIPED_CASES = [("bf16", 1), ("bf16", 7), ("bf16", 512), ("f32", 64), ("int8", 7),
                ("int8", 512)]
-FUSED_CASES = [(1, False, False), (7, True, True), (130, True, False), (512, False, True),
-               (512, True, True)]  # (B, skip_tiles, packed)
+# the ping-pong kernel's edges: (dtype, B, N, d, g, storage offset); a
+# ragged query block, g = 64 and g = 128/256 (served from g = 64), d = 100
+# (the wrapper's zero-padding copy) on views off a 16-byte boundary; 256
+# rows dead in each case
+PIPED_EDGES = [("bf16", 130, 262_144, 768, 64, 0), ("bf16", 512, 262_144, 768, 256, 0),
+               ("bf16", 33, 65_536, 100, 16, 3), ("int8", 130, 262_144, 768, 128, 0),
+               ("int8", 33, 65_536, 100, 32, 5)]
+# (B, skip_tiles, packed, k, metric): the probe's shapes first, then the
+# wgmma kernel's batch and k edges (B off a 128-query block, k = 1, 100 and
+# 128, where the lists take the 64-query layout)
+FUSED_CASES = [(1, False, False, K, "cosine"), (7, True, True, K, "cosine"),
+               (130, True, False, K, "cosine"), (512, False, True, K, "cosine"),
+               (512, True, True, K, "cosine"), (256, True, True, 100, "ip"),
+               (257, False, False, 128, "l2"), (512, True, True, 1, "cosine"),
+               (7, False, True, 128, "ip")]
+# integer data, bit for bit: (B, N, d, storage offset, live rows, metric)
+FUSED_EXACT = [(512, 262_144, 768, 0, None, "ip"), (33, 65_536, 100, 3, None, "l2"),
+               (9, 262_144, 768, 0, 3, "ip")]
 FUSED_TILE = 2048
 PROBE_N = 2_000_000
 PROBE_STREAM = 8
@@ -654,6 +686,34 @@ def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
         check(err <= bar, f"subtile_max_piped disagrees with its plain version: {err}")
     del q, x, valid, got, want
 
+    for dt_name, b, n, d, g, offset in PIPED_EDGES:
+        valid = torch.rand(n, generator=gen, device=dev) > 0.03
+        valid[4096 : 4096 + 256] = False  # whole sub-tiles dead, at every g
+        if dt_name == "int8":
+            x = torch.randint(-127, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+            q = torch.randint(-127, 128, (b, d), generator=gen, device=dev, dtype=torch.int8)
+            scale = (torch.rand(n // g, generator=gen, device=dev) + 0.1).repeat_interleave(g)
+        else:
+            x = unit_rows(gen, n, d, torch.bfloat16, dev)
+            q, scale = unit_rows(gen, b, d, torch.bfloat16, dev), None
+        x[~valid] = 0
+        xv, qv = x, q
+        if offset:  # contiguous views off a 16-byte boundary
+            xv = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+            qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+        got = smp.subtile_max_piped(qv, xv, valid, g, scale=scale)
+        torch.cuda.synchronize()
+        want = smp.subtile_max_piped_plain(q, x, valid, g, scale=scale)
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        bar = 0.0 if dt_name == "int8" else TOL
+        dead = bool((got[:, 4096 // g : (4096 + 256) // g] == sm.NEG).all())
+        report(f"piped {dt_name} B={b} N={n} d={d} g={g} storage offset {offset}: "
+               f"max|kernel - plain| = {err:.3e} (bound {bar:g}); dead sub-tiles NEG: {dead}")
+        check(got.shape == (b, n // g) and err <= bar and dead,
+              f"subtile_max_piped disagrees with its plain version at B={b} d={d} g={g}")
+    del q, x, valid, got, want, xv, qv
+
     n = TIMING_N - TIMING_N % G
     x = unit_rows(gen, n, DIM, torch.bfloat16, dev)
     valid = torch.rand(n, generator=gen, device=dev) > 0.03
@@ -678,7 +738,9 @@ def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
                      "TFLOP/s", n * DIM * 2)
     s1, p1, p2, s2 = (cuda_ms(f, 10) for f in (stream, kernel, kernel, stream))
     report(f"piped against subtile_max.cu, bf16 B={BATCH} N={n}, in turns (stream, piped, "
-           f"piped, stream): piped {p1:.3f} / {p2:.3f} ms, stream {s1:.3f} / {s2:.3f} ms")
+           f"piped, stream): piped {p1:.3f} / {p2:.3f} ms ({2 * flops / (p1 + p2) / 1e9:.1f} "
+           f"TFLOP/s), stream {s1:.3f} / {s2:.3f} ms ({2 * flops / (s1 + s2) / 1e9:.1f} "
+           f"TFLOP/s)")
     nbytes = n * DIM * 2 + n + BATCH * DIM * 2 + 4 * BATCH * (n // G)
     out = {"max_abs_err": max_err, **timed, **bound(flops, H100_BF16_PEAK, nbytes),
            "library_ms": None, "stream_ms": (s1 + s2) / 2}
@@ -690,7 +752,10 @@ def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
     same = bool(torch.equal(piped(), stream()))
     s1, p1, p2, s2 = (cuda_ms(f, 10) for f in (stream, piped, piped, stream))
     report(f"piped int8 B={BATCH} N={n}: equal to subtile_max_i8.cu's output: {same}; in "
-           f"turns: piped {p1:.3f} / {p2:.3f} ms, subtile_max_i8 {s1:.3f} / {s2:.3f} ms")
+           f"turns: piped {p1:.3f} / {p2:.3f} ms ({2 * flops / (p1 + p2) / 1e9:.1f} TOP/s), "
+           f"subtile_max_i8 {s1:.3f} / {s2:.3f} ms ({2 * flops / (s1 + s2) / 1e9:.1f} TOP/s); "
+           f"bound {bound(flops, H100_INT8_PEAK, n * DIM + 5 * n + BATCH * DIM + 4 * BATCH * (n // G))['bound_ms']:.3f} "
+           f"ms (int8 ops)")
     check(same, "piped int8 differs from subtile_max_i8 at N=2M")
     out["i8_ms"], out["i8_stream_ms"] = (p1 + p2) / 2, (s1 + s2) / 2
     del q, codes, scale, valid
@@ -714,15 +779,21 @@ def probe_queries(torch, gen, x, b, dev):
     return q / torch.linalg.norm(q, dim=1, keepdim=True)
 
 
-def compare_topk(torch, fm, got, want, packed: bool, what: str) -> float:
+def compare_topk(torch, fm, got, want, packed: bool, what: str, exact: bool = False) -> float:
     """Checks the fused kernel's (scores, ids) against its plain version's:
     not packed, scores within TOL and ids equal except between candidates
     within TOL of the k-th score; packed, quantized scores equal or one
-    quantum apart, and ids equal except within one quantum of the k-th.
-    Returns the max abs score difference."""
+    quantum apart, and ids equal except within one quantum of the k-th;
+    ``exact`` (integer data), both bit for bit. Returns the max abs score
+    difference."""
     gs, gp = (t.cpu() for t in got)
     ws, wp = (t.cpu() for t in want)
     err = float((gs - ws).abs().max())
+    if exact:
+        same = bool(torch.equal(gs, ws) and torch.equal(gp, wp))
+        report(f"fused {what}: scores and ids bit for bit the plain version's: {same}")
+        check(same, f"fused_mips_topk differs from its plain version on integer data ({what})")
+        return err
     if packed:  # scores in quanta: the key with its index bits shifted out
         bits = fm.packed_bits(FUSED_TILE, True)
         gv = (fm.quantize_keys(gs, bits).long() >> bits).double()
@@ -745,22 +816,52 @@ def compare_topk(torch, fm, got, want, packed: bool, what: str) -> float:
 
 
 def phase_kernel_fused(torch, fm, dev) -> dict:
-    phase("kernel against its plain version: fused_mips_topk (cosine, bf16, tile 2048)")
+    phase("kernel against its plain version: fused_mips_topk (bf16, tile 2048)")
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     x, valid = probe_corpus(torch, gen, KERNEL_N, dev)
-    sq = torch.ones(KERNEL_N, device=dev)
+    sq = (x.float() * x.float()).sum(1)
     max_err = 0.0
-    for b, skip, packed in FUSED_CASES:
+    for b, skip, packed, k, metric in FUSED_CASES:
         q = probe_queries(torch, gen, x, b, dev)
-        got = fm.fused_mips_topk(q, x, valid, sq, K, tile_n=FUSED_TILE, skip_tiles=skip,
-                                 packed=packed)
+        got = fm.fused_mips_topk(q, x, valid, sq, k, tile_n=FUSED_TILE, metric=metric,
+                                 skip_tiles=skip, packed=packed)
         torch.cuda.synchronize()
-        want = fm.fused_mips_topk_plain(q, x, valid, sq, K, FUSED_TILE, "cosine", skip, packed)
-        check(got[0].shape == (b, K) and got[1].shape == (b, K), "fused output shape")
+        want = fm.fused_mips_topk_plain(q, x, valid, sq, k, FUSED_TILE, metric, skip, packed)
+        check(got[0].shape == (b, k) and got[1].shape == (b, k), "fused output shape")
         max_err = max(max_err, compare_topk(
             torch, fm, got, want, packed,
-            f"B={b} N={KERNEL_N} skip_tiles={skip} packed={packed}"))
+            f"{metric} B={b} N={KERNEL_N} k={k} skip_tiles={skip} packed={packed}"))
     del x, valid, sq
+
+    # integer data: every dot exact in any order, so scores tie within and
+    # across splits and the kernel equals its plain version bit for bit;
+    # d = 100 on a view off a 16-byte boundary (the wrapper's copy), and a
+    # corpus with fewer live rows than k
+    for b, n, d, offset, live, metric in FUSED_EXACT:
+        x = torch.randint(-2, 3, (n, d), generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randint(-2, 3, (b, d), generator=gen, device=dev).to(torch.bfloat16)
+        valid = torch.rand(n, generator=gen, device=dev) > 0.03
+        if live is not None:
+            valid[:] = False
+            valid[torch.randperm(n, generator=gen, device=dev)[:live]] = True
+        sq = (x.float() * x.float()).sum(1)
+        xv, qv = x, q
+        if offset:
+            xv = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+            qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+        for skip, packed in ((False, False), (True, True)):
+            got = fm.fused_mips_topk(qv, xv, valid, sq, 128 if live else K, tile_n=FUSED_TILE,
+                                     metric=metric, skip_tiles=skip, packed=packed)
+            torch.cuda.synchronize()
+            want = fm.fused_mips_topk_plain(q, x, valid, sq, 128 if live else K, FUSED_TILE,
+                                            metric, skip, packed)
+            compare_topk(torch, fm, got, want, packed,
+                         f"integer {metric} B={b} N={n} d={d} offset {offset} live "
+                         f"{live if live else 'most'} skip_tiles={skip} packed={packed}",
+                         exact=True)
+            if live:
+                check(bool((got[1][:, live:] == -1).all()), "fused empty slots are not -1")
+    del x, q, valid, sq, xv, qv, got, want
 
     n = -(-PROBE_N // 4096) * 4096  # the probe pads its rows to 4096
     x, valid = probe_corpus(torch, gen, n, dev)
@@ -779,12 +880,27 @@ def phase_kernel_fused(torch, fm, dev) -> dict:
                      "packed", flops, "TFLOP/s", n * DIM * 2)
     unpacked = lambda: fm.fused_mips_topk(q, x, valid, sq, K, tile_n=FUSED_TILE)  # noqa: E731
     unpacked()
-    report(f"fused, skip_tiles and packed off: {cuda_ms(unpacked, 5):.3f} ms (CUDA events)")
+    unpacked_ms = cuda_ms(unpacked, 5)
+    report(f"fused, packed off (skip_tiles off too; the kernel filters either way): "
+           f"{unpacked_ms:.3f} ms (CUDA events)")
+    # yardsticks, not library calls (neither computes the function): the
+    # GEMM alone and the GEMM followed by torch.topk, in turns with the
+    # kernel
+    qb = torch.nn.functional.normalize(q, dim=1).to(torch.bfloat16)
+    gemm = lambda: torch.matmul(qb, x.T)  # noqa: E731
+    gemm_topk = lambda: torch.topk(torch.matmul(qb, x.T), K, dim=1)  # noqa: E731
+    gemm(), gemm_topk()
+    g1, t1, f1, f2, t2, g2 = (cuda_ms(f, 5) for f in
+                              (gemm, gemm_topk, kernel, kernel, gemm_topk, gemm))
+    report(f"fused against yardsticks, bf16 B={BATCH} N={n}, in turns: fused {f1:.3f} / "
+           f"{f2:.3f} ms ({2 * flops / (f1 + f2) / 1e9:.1f} TFLOP/s), torch.matmul(q, x.T) "
+           f"{g1:.3f} / {g2:.3f} ms, matmul + torch.topk(., {K}) {t1:.3f} / {t2:.3f} ms")
     nbytes = n * DIM * 2 + n + BATCH * DIM * 2 + 8 * BATCH * K
-    del x, valid, sq, q
+    del x, valid, sq, q, qb
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, **timed, **bound(flops, H100_BF16_PEAK, nbytes),
-            "library_ms": None}
+            "library_ms": None, "unpacked_ms": unpacked_ms, "gemm_ms": (g1 + g2) / 2,
+            "gemm_topk_ms": (t1 + t2) / 2}
 
 
 def phase_kernel_stream(torch, cst, dev) -> dict:

@@ -200,6 +200,14 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives at a named barrier without waiting: the other `threads` minus
+// these wait for it with named_barrier_sync (an ordered hand-off between
+// warpgroups). Writes before it are fenced first.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma
 
 // Shared-memory matrix descriptor of a 128B-swizzled operand: start

@@ -10,405 +10,423 @@
 //   int8:     out[b, t] = scale[t*g] * (max over live r of the raw int32
 //             dot), NEG when no row is live (one scale per g-row sub-tile).
 //
-// out is (B, N/g) f32.
+// out is (B, N/g) f32, g in {16, 32, 64} (a 64-row tile holds whole
+// sub-tiles; the wrapper serves g = 128 and 256 from g = 64 maxima).
 //
 // Replaces rag_arc_tpu/ops/two_level_stream.py:53 _stream_kernel_piped (the
 // TPU kernel's pipelined producer, subtile_max_stream(pipelined=True)). On
 // the TPU one core runs the grid in order; that kernel issues tile i's
-// matmul on the MXU before it reduces tile i-1's score slab on the VPU, two
-// slabs, so the two units overlap. This kernel overlaps the same two things
-// on an SM, and the load of the next tile besides:
+// matmul on the MXU before it reduces tile i-1's score slab on the VPU, so
+// the two units overlap. Here the same overlap is a warpgroup ping-pong
+// (bf16 and int8):
 //
-//   - warp specialisation: 8 MMA warps compute a 128-row x 64-query score
-//     tile on the tensor cores (WMMA; SIMT FMAs for f32, no TF32), 4 reduce
-//     warps take the masked sub-tile maxima of a finished tile and write
-//     them out;
-//   - two score slabs in shared memory: while the reduce warps read slab
-//     (i-1) % 2, the MMA warps compute tile i into registers and store it
-//     to slab i % 2. Named barriers hand a slab over (FULL: MMA -> reduce)
-//     and back (FREE: reduce -> MMA); the MMA warps wait for a slab only
-//     from the third tile on;
-//   - a 3-stage cp.async ring of 64-byte k-slices of corpus and query rows:
-//     the loads of k-step s+2 are in flight while the tensor cores run
-//     k-step s, and the ring runs on across tile boundaries, so the first
-//     slices of tile i+1 arrive while tile i finishes.
+// - A block is a producer warpgroup (one thread issues TMA loads;
+//   setmaxnreg leaves it 40 registers and the consumers 232) and two
+//   consumer warpgroups. A tile is 64 corpus rows x a query block of
+//   QB = 128 or 256, one m64nQB wgmma accumulator in registers (corpus =
+//   A, queries = B; bf16 k16 or s8 k32 steps, csrc/hopper.cuh).
+// - The consumer warpgroups take alternate tiles of the block, each a
+//   whole tile. Ordered named barriers (TURN) let only one of them issue
+//   its mainloop at a time, in tile order, so warpgroup A issues tile i's
+//   wgmma while warpgroup B runs tile i-1's masked sub-tile-max epilogue
+//   and writes it out: the tensor cores never wait for an epilogue.
+//   Inside a mainloop one wgmma group stays in flight (wait<1>), because
+//   no second warpgroup fills the gaps between k-steps.
+// - Both operands arrive by TMA in 128-byte d slices (64 bf16 or 128
+//   int8, 128-byte swizzle) through a 4-stage ring with a full/empty
+//   mbarrier pair per stage, consumed in tile order; a stage is released
+//   by the one warpgroup that read it. TMA zero-fills rows past N or B and
+//   columns past d.
+// - The grid is persistent (one block per SM); tiles go in order with the
+//   query block the fast axis, so blocks in flight share corpus rows and
+//   the corpus streams from HBM about once.
+// - The epilogue is subtile_max.cu's register reduce-scatter over lane
+//   bits 2-4 (and, for int8, subtile_max_i8.cu's: raw int32 maxima with
+//   MASK_I32 on dead rows, scale[t*g] loaded before the mainloop); valid is
+//   read before the mainloop, so its latency hides under the wgmma.
 //
-// Each block is persistent over its query block: it walks the corpus tiles
-// p, p+P, p+2P, ... with the query block as the fast grid axis, so the
-// blocks in flight share corpus tiles and the corpus is read from HBM about
-// once. What bounds it on an H100 is what bounds subtile_max.cu: 2*B*N*d
+// What bounds it on an H100 is what bounds subtile_max.cu: 2*B*N*d
 // tensor-core operations against N*d*elem bytes, compute-bound at B = 512.
-// The wrapper (ops/subtile_max_piped.py) requires rows of a multiple of 16
-// bytes starting on 16-byte boundaries (every cp.async moves 16 bytes).
+// The operands must suit TMA: 16-byte-aligned bases and rows of a multiple
+// of 16 bytes (the wrapper copies an operand that is not).
+//
+// f32 stays on CUDA cores (no TF32, which would change rankings against
+// the f32 reference): a 64-row x 64-query block of FMAs, subtile_max.cu's
+// f32 kernel at the piped tile height.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG = -3.0e38f;       // sentinel below any real score
 constexpr int MASK_I32 = -(1 << 30);  // raw-dot sentinel of a dead row (int8)
-constexpr int MMA_WARPS = 8;
-constexpr int RED_WARPS = 4;
-constexpr int MMA_THREADS = MMA_WARPS * 32;
-constexpr int RED_THREADS = RED_WARPS * 32;
-constexpr int THREADS = MMA_THREADS + RED_THREADS;
-constexpr int FRAG = 16;                 // WMMA tile edge
-constexpr int ROWS = MMA_WARPS * FRAG;   // corpus rows per tile: 128
-constexpr int QB = 64;                   // queries per block
-constexpr int QF = QB / FRAG;            // query fragments per MMA warp
-constexpr int KB = 64;                   // bytes of a row per k-step
-constexpr int PITCH = KB + 16;           // staged row pitch in bytes (bf16, f32)
-constexpr int STAGES = 3;
-constexpr int X_BYTES = ROWS * PITCH;    // 10240; int8 uses 4 x 128 x 16 = 8192
-constexpr int STAGE_BYTES = X_BYTES + QB * PITCH;
-constexpr int LDR = ROWS + 4;            // slab pitch: slab[query][row]
-constexpr int SLAB_WORDS = QB * LDR;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * SLAB_WORDS * 4;
-
-// named barriers (0 is __syncthreads, unused once the roles split)
-constexpr int BAR_MMA = 1;   // the MMA warps among themselves
-constexpr int BAR_FULL = 2;  // + slab: the slab holds a finished tile
-constexpr int BAR_FREE = 4;  // + slab: the reduce warps are done with it
 
 enum Mode { F32 = 0, BF16 = 1, I8 = 2 };
 
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
+// ------------------------------------------------------ bf16 and int8 --
 
-// 16-byte async copy global -> shared; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+constexpr int ROWS = 64;        // corpus rows per tile: one warpgroup's m64
+constexpr int SLICE = 128;      // bytes of a row per stage: one swizzle row
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + a producer warpgroup
+constexpr int SUB = ROWS / 16;  // 16-row sub-tiles per tile (one per warp)
 
-// Issues the copies of one k-step (64 bytes of each of the tile's 128 corpus
-// rows and of the block's 64 query rows) into ring stage `st`. int8 stages
-// are chunk-major (chunk c holds rows x 16 bytes) so that every WMMA
-// fragment starts on a 32-byte boundary; bf16/f32 stages are row-major with
-// an 80-byte pitch.
-template <int MODE>
-__device__ __forceinline__ void issue_kstep(unsigned char* st,
-                                            const unsigned char* x,
-                                            const unsigned char* q, long r0,
-                                            int b0, int N, int B,
-                                            long row_bytes, int ks, int tid) {
-  const long kbyte = (long)ks * KB;
-  // corpus: 128 rows x 4 chunks, two per thread
-#pragma unroll
-  for (int i = 0; i < (ROWS * 4) / MMA_THREADS; ++i) {
-    const int c = tid + i * MMA_THREADS;
-    const int r = c >> 2, ch = c & 3;
-    const long row = r0 + r;
-    const long off = kbyte + ch * 16;
-    const bool ok = row < N && off < row_bytes;
-    unsigned char* dst = MODE == I8 ? st + ch * (ROWS * 16) + r * 16
-                                    : st + r * PITCH + ch * 16;
-    cp_async16(dst, ok ? x + row * row_bytes + off : x, ok ? 16 : 0);
-  }
-  // queries: 64 rows x 4 chunks, one per thread
-  {
-    const int r = tid >> 2, ch = tid & 3;
-    const long qrow = b0 + r;
-    const long off = kbyte + ch * 16;
-    const bool ok = qrow < B && off < row_bytes;
-    unsigned char* qs = st + X_BYTES;
-    unsigned char* dst = MODE == I8 ? qs + ch * (QB * 16) + r * 16
-                                    : qs + r * PITCH + ch * 16;
-    cp_async16(dst, ok ? q + qrow * row_bytes + off : q, ok ? 16 : 0);
-  }
-}
+// named barriers (0 is __syncthreads, used once before the roles split)
+constexpr int BAR_TURN = 1;  // + wg: warpgroup wg may issue its mainloop
+constexpr int BAR_WG = 3;    // + wg: the warpgroup's own epilogue
 
-// The MMA warps' accumulators for one 128 x 64 tile, per mode.
-template <int MODE>
-struct Acc;
-
-template <>
-struct Acc<BF16> {
-  wmma::fragment<wmma::accumulator, FRAG, FRAG, FRAG, float> f[QF];
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < QF; ++j) wmma::fill_fragment(f[j], 0.0f);
-  }
-  __device__ void step(const unsigned char* st, int warp, int) {
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st);
-    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(st + X_BYTES);
-    constexpr int LD = PITCH / 2;  // 40 elements
-#pragma unroll
-    for (int kk = 0; kk < KB / 2; kk += FRAG) {
-      wmma::fragment<wmma::matrix_a, FRAG, FRAG, FRAG, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, xs + warp * FRAG * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < QF; ++j) {
-        // q rows are the columns of B = q^T: column-major with stride LD
-        wmma::fragment<wmma::matrix_b, FRAG, FRAG, FRAG, __nv_bfloat16,
-                       wmma::col_major> bq;
-        wmma::load_matrix_sync(bq, qs + j * FRAG * LD + kk, LD);
-        wmma::mma_sync(f[j], a, bq, f[j]);
-      }
-    }
-  }
-  __device__ void store(float* slab, int warp, int) {
-    // column-major store: element (row m, query n) lands at slab[n][m]
-#pragma unroll
-    for (int j = 0; j < QF; ++j) {
-      wmma::store_matrix_sync(slab + j * FRAG * LDR + warp * FRAG, f[j], LDR,
-                              wmma::mem_col_major);
-    }
-  }
+template <int QB>
+struct Layout {
+  static constexpr int X_BYTES = ROWS * SLICE;
+  static constexpr int STAGE = X_BYTES + QB * SLICE;  // a multiple of 1024
+  static constexpr int MAXES = 2 * QB * (SUB + 1) * 4;  // per warpgroup [query][sub-tile]
+  static constexpr int BARS = 2 * STAGES * 8;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + MAXES + BARS;  // + alignment slack
 };
 
+// One k-step of the tile on the tensor cores: bf16 k16 (f32 accumulate)
+// or s8 k32 (s32 accumulate), both 32 bytes along d.
+template <int QB>
+__device__ __forceinline__ void mma(float (&acc)[QB / 2], uint64_t a, uint64_t b, int sd) {
+  if constexpr (QB == 128) hopper::wgmma_m64n128k16_ss(acc, a, b, sd);
+  else hopper::wgmma_m64n256k16_ss(acc, a, b, sd);
+}
+
+template <int QB>
+__device__ __forceinline__ void mma(int (&acc)[QB / 2], uint64_t a, uint64_t b, int sd) {
+  if constexpr (QB == 128) hopper::wgmma_m64n128k32_s8_ss(acc, a, b, sd);
+  else hopper::wgmma_m64n256k32_s8_ss(acc, a, b, sd);
+}
+
+// The accumulator's type and a dead row's value: f32 scores (bf16) or raw
+// int32 dots (int8).
+template <int MODE>
+struct Acc {
+  using T = float;
+  static constexpr float DEAD = NEG;
+};
 template <>
 struct Acc<I8> {
-  wmma::fragment<wmma::accumulator, FRAG, FRAG, FRAG, int> f[QF];
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < QF; ++j) wmma::fill_fragment(f[j], 0);
-  }
-  __device__ void step(const unsigned char* st, int warp, int) {
-    const signed char* xs = reinterpret_cast<const signed char*>(st);
-    const signed char* qs = reinterpret_cast<const signed char*>(st + X_BYTES);
-#pragma unroll
-    for (int ch = 0; ch < KB / 16; ++ch) {
-      wmma::fragment<wmma::matrix_a, FRAG, FRAG, FRAG, signed char,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, xs + ch * (ROWS * 16) + warp * FRAG * 16, 16);
-#pragma unroll
-      for (int j = 0; j < QF; ++j) {
-        wmma::fragment<wmma::matrix_b, FRAG, FRAG, FRAG, signed char,
-                       wmma::col_major> bq;
-        wmma::load_matrix_sync(bq, qs + ch * (QB * 16) + j * FRAG * 16, 16);
-        wmma::mma_sync(f[j], a, bq, f[j]);
-      }
-    }
-  }
-  __device__ void store(float* slab, int warp, int) {
-    int* s = reinterpret_cast<int*>(slab);
-#pragma unroll
-    for (int j = 0; j < QF; ++j) {
-      wmma::store_matrix_sync(s + j * FRAG * LDR + warp * FRAG, f[j], LDR,
-                              wmma::mem_col_major);
-    }
-  }
+  using T = int;
+  static constexpr int DEAD = MASK_I32;
 };
 
-// f32: CUDA-core FMAs. MMA thread t owns rows (t % 32) + 32 i, i < 4, and
-// queries (t / 32) * 8 + j, j < 8; a row's 16-byte reads by 8 neighbouring
-// threads fall in distinct bank groups (80-byte pitch), a query's are a
-// broadcast.
-template <>
-struct Acc<F32> {
-  float a[4][8];
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) a[i][j] = 0.0f;
-  }
-  __device__ void step(const unsigned char* st, int, int tid) {
-    const int tr = tid & 31, tq = tid >> 5;
-    const unsigned char* qs = st + X_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < KB; kk += 16) {
-      float4 xv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        xv[i] = *reinterpret_cast<const float4*>(st + (tr + 32 * i) * PITCH + kk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qs + (tq * 8 + j) * PITCH + kk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float s = a[i][j];
-          s = fmaf(xv[i].x, qv.x, s);
-          s = fmaf(xv[i].y, qv.y, s);
-          s = fmaf(xv[i].z, qv.z, s);
-          s = fmaf(xv[i].w, qv.w, s);
-          a[i][j] = s;
-        }
-      }
-    }
-  }
-  __device__ void store(float* slab, int, int tid) {
-    const int tr = tid & 31, tq = tid >> 5;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) slab[(tq * 8 + j) * LDR + tr + 32 * i] = a[i][j];
-  }
-};
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-subtile_max_piped_kernel(const void* __restrict__ qv, const void* __restrict__ xv,
-                         const uint8_t* __restrict__ valid,
-                         const float* __restrict__ scale,
-                         float* __restrict__ out, int B, int N, int d, int g,
-                         int parts) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ring = smem;
-  float* slabs = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+template <int QB, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+piped_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap qmap,
+                   const uint8_t* __restrict__ valid, const float* __restrict__ scale,
+                   float* __restrict__ out, int B, int N, int d, int g) {
+  using Lay = Layout<QB>;
+  using T = typename Acc<MODE>::T;
+  constexpr T DEAD = Acc<MODE>::DEAD;
+  constexpr int KT = MODE == I8 ? SLICE : SLICE / 2;  // elements per slice
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Lay::STAGE + Lay::MAXES);
+  uint64_t* empty = full + STAGES;
 
   const int n_qblk = (B + QB - 1) / QB;
-  const int b0 = (blockIdx.x % n_qblk) * QB;
-  const int part = blockIdx.x / n_qblk;
-  const int n_tiles = (N + ROWS - 1) / ROWS;
-  const int my_tiles = part < n_tiles ? (n_tiles - 1 - part) / parts + 1 : 0;
-  constexpr int ELEM = MODE == F32 ? 4 : (MODE == BF16 ? 2 : 1);
-  const long row_bytes = (long)d * ELEM;
-  const int ksteps = (int)((row_bytes + KB - 1) / KB);
-  const int warp = threadIdx.x / 32;
+  const long n_tiles = (long)((N + ROWS - 1) / ROWS) * n_qblk;
+  const int n_k = (d + KT - 1) / KT;
+  // the launch gives every block at least one tile
+  const long n_local = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
 
-  if (warp < MMA_WARPS) {
-    // ------------------------------------------------------ MMA warps --
-    const int tid = threadIdx.x;
-    const unsigned char* x = static_cast<const unsigned char*>(xv);
-    const unsigned char* q = static_cast<const unsigned char*>(qv);
-    const long total = (long)my_tiles * ksteps;
-    // prologue: the first STAGES-1 k-steps in flight
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < total) {
-        const long r0 = (long)(part + (s / ksteps) * parts) * ROWS;
-        issue_kstep<MODE>(ring + s * STAGE_BYTES, x, q, r0, b0, N, B,
-                          row_bytes, s % ksteps, tid);
-      }
-      cp_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // lane 0 of each warp of the one reader
     }
-    Acc<MODE> acc;
-    acc.zero();
-    for (long s = 0; s < total; ++s) {
-      cp_wait<STAGES - 2>();   // this thread's copies of k-step s landed
-      bar_sync(BAR_MMA, MMA_THREADS);  // everyone's did; stage s-1 is free
-      const long nxt = s + STAGES - 1;
-      if (nxt < total) {
-        const long r0 = (long)(part + (nxt / ksteps) * parts) * ROWS;
-        issue_kstep<MODE>(ring + (nxt % STAGES) * STAGE_BYTES, x, q, r0, b0,
-                          N, B, row_bytes, (int)(nxt % ksteps), tid);
-      }
-      cp_commit();
-      acc.step(ring + (s % STAGES) * STAGE_BYTES, warp, tid);
-      if ((s + 1) % ksteps == 0) {  // the tile is done: hand it to a slab
-        const long it = s / ksteps;
-        const int slab = (int)(it & 1);
-        if (it >= 2) bar_sync(BAR_FREE + slab, THREADS);
-        acc.store(slabs + slab * SLAB_WORDS, warp, tid);
-        __threadfence_block();
-        bar_arrive(BAR_FULL + slab, THREADS);
-        acc.zero();
-      }
-    }
-    cp_wait<0>();
-  } else {
-    // --------------------------------------------------- reduce warps --
-    const int rt = threadIdx.x - MMA_THREADS;
-    const int n_out = ROWS / g;  // sub-tiles per tile
-    const long n_sub = N / g;
-    for (int it = 0; it < my_tiles; ++it) {
-      const int slab = it & 1;
-      bar_sync(BAR_FULL + slab, THREADS);
-      const float* sl = slabs + slab * SLAB_WORDS;
-      const long r0 = (long)(part + (long)it * parts) * ROWS;
-      const long t0 = r0 / g;
-      // consecutive threads take consecutive sub-tiles of one query, so a
-      // warp's stores cover whole 32-byte segments of an output row
-      for (int i = rt; i < QB * n_out; i += RED_THREADS) {
-        const int bq = i / n_out;
-        const int w = i % n_out;
-        const long t = t0 + w;
-        if (b0 + bq >= B || t >= n_sub) continue;
-        const long row0 = t * g;
-        float res;
-        if constexpr (MODE == I8) {
-          const int* src = reinterpret_cast<const int*>(sl) + bq * LDR + w * g;
-          int m = MASK_I32;
-          for (int r = 0; r < g; ++r)
-            if (valid[row0 + r]) m = max(m, src[r]);
-          res = m <= MASK_I32 / 2 ? NEG : static_cast<float>(m) * scale[row0];
-        } else {
-          const float* src = sl + bq * LDR + w * g;
-          res = NEG;
-          for (int r = 0; r < g; ++r)
-            if (valid[row0 + r]) res = fmaxf(res, src[r]);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer warpgroup: one thread keeps the ring full, in tile order
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      hopper::prefetch_map(&xmap);
+      hopper::prefetch_map(&qmap);
+      long slice = 0;
+      for (long i = 0; i < n_local; ++i) {
+        const long tile = blockIdx.x + i * gridDim.x;
+        const int r0 = (int)(tile / n_qblk) * ROWS;
+        const int b0 = (int)(tile % n_qblk) * QB;
+        for (int ks = 0; ks < n_k; ++ks, ++slice) {
+          const int stage = (int)(slice % STAGES);
+          hopper::mbar_wait(&empty[stage], (uint32_t)((slice / STAGES) & 1) ^ 1);
+          unsigned char* st = smem + stage * Lay::STAGE;
+          hopper::mbar_arrive_expect_tx(&full[stage], Lay::STAGE);
+          hopper::tma_load_2d(st, &xmap, &full[stage], ks * KT, r0);
+          hopper::tma_load_2d(st + Lay::X_BYTES, &qmap, &full[stage], ks * KT, b0);
         }
-        out[(long)(b0 + bq) * n_sub + t] = res;
-      }
-      // the MMA warps wait for a slab from their third tile on: the last
-      // two tiles' slabs are never waited for, so no arrival is left open
-      if (it + 2 < my_tiles) {
-        __threadfence_block();
-        bar_arrive(BAR_FREE + slab, THREADS);
       }
     }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg takes the block's tiles wg, wg + 2, ...
+  hopper::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;  // owns the tile's 16-row sub-tile `warp`
+  const int lane = tid % 32;
+  const int per = g / 16;
+  const int n_out = ROWS / g;              // 4, 2 or 1: g in {16, 32, 64}
+  const int out_shift = __ffs(n_out) - 1;  // log2(n_out)
+  const long n_sub = N / g;
+  T* maxes = reinterpret_cast<T*>(smem + STAGES * Lay::STAGE) + wg * QB * (SUB + 1);
+  T acc[QB / 2];
+
+  for (long i = wg; i < n_local; i += 2) {
+    const long tile = blockIdx.x + i * gridDim.x;
+    const int r0 = (int)(tile / n_qblk) * ROWS;
+    const int b0 = (int)(tile % n_qblk) * QB;
+    // what the epilogue reads of global memory, loaded before the mainloop:
+    // this thread's rows r_lo and r_lo + 8 and (int8) the scale of the one
+    // sub-tile t0 + (tid & (n_out - 1)) the output loop gives it
+    const int r_lo = r0 + warp * 16 + lane / 4;
+    const int r_hi = r_lo + 8;
+    const bool v_lo = r_lo < N && valid[r_lo];
+    const bool v_hi = r_hi < N && valid[r_hi];
+    float s_t = 0.0f;
+    if constexpr (MODE == I8) {
+      const long t = r0 / g + (tid & (n_out - 1));
+      s_t = t < n_sub ? scale[t * g] : 0.0f;
+    }
+
+    // mainloop, in turn with the other warpgroup
+    if (i >= 1) hopper::named_barrier_sync(BAR_TURN + wg, CONSUMERS);
+    long slice = i * n_k;
+    int prev = 0;
+    for (int ks = 0; ks < n_k; ++ks, ++slice) {
+      const int stage = (int)(slice % STAGES);
+      hopper::mbar_wait(&full[stage], (uint32_t)((slice / STAGES) & 1));
+      const uint32_t xa = hopper::smem_u32(smem + stage * Lay::STAGE);
+      const uint32_t qa = xa + Lay::X_BYTES;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SLICE / 32; ++kk) {
+        mma<QB>(acc, hopper::desc_sw128(xa + kk * 32, 16, 1024),
+                hopper::desc_sw128(qa + kk * 32, 16, 1024), (ks | kk) != 0);
+      }
+      hopper::wgmma_commit();
+      if (ks > 0) {  // the previous k-step is done: its stage is free
+        hopper::wgmma_wait<1>();
+        if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+    }
+    if (i + 1 < n_local) hopper::named_barrier_arrive(BAR_TURN + (wg ^ 1), CONSUMERS);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+    // epilogue, in registers: the masked max over this thread's two rows,
+    // kept in acc[4j + e] (column 8j + 2 (lane % 4) + e)
+#pragma unroll
+    for (int j = 0; j < QB / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        acc[4 * j + e] = vmax(v_lo ? acc[4 * j + e] : DEAD, v_hi ? acc[4 * j + 2 + e] : DEAD);
+    }
+    // then over the 8 lanes that share those columns (lane bits 2-4), as a
+    // reduce-scatter: at step s a lane keeps half its column groups j and
+    // takes its partner's values for them, ending with columns
+    // 64m + 2 lane + e
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const bool up = (lane >> (2 + s)) & 1;
+#pragma unroll
+      for (int j = 0; j < QB / 8; j += 2 << s) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const T lo = acc[4 * j + e];
+          const T hi = acc[4 * (j + (1 << s)) + e];
+          const T theirs = __shfl_xor_sync(0xffffffffu, up ? lo : hi, 4 << s);
+          acc[4 * j + e] = vmax(up ? hi : lo, theirs);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < QB / 64; ++m) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) maxes[(64 * m + 2 * lane + e) * (SUB + 1) + warp] = acc[32 * m + e];
+    }
+    hopper::named_barrier_sync(BAR_WG + wg, 128);
+
+    // g = 16 * per rows a sub-tile: combine per neighbouring 16-row
+    // maxima; consecutive threads write consecutive sub-tiles of a query
+    const long t0 = r0 / g;
+    for (int c = tid; c < QB * n_out; c += 128) {
+      const int bq = c >> out_shift;
+      const int w = c & (n_out - 1);
+      const long t = t0 + w;
+      if (b0 + bq >= B || t >= n_sub) continue;
+      T m = maxes[bq * (SUB + 1) + w * per];
+      for (int p = 1; p < per; ++p) m = vmax(m, maxes[bq * (SUB + 1) + w * per + p]);
+      float res;
+      if constexpr (MODE == I8) {
+        res = m <= MASK_I32 / 2 ? NEG : static_cast<float>(m) * s_t;  // scale[t * g]
+      } else {
+        res = static_cast<float>(m);
+      }
+      out[(long)(b0 + bq) * n_sub + t] = res;
+    }
+    hopper::named_barrier_sync(BAR_WG + wg, 128);  // maxes is free for the next tile
   }
 }
 
-template <int MODE>
-int launch(const void* q, const void* x, const uint8_t* v, const float* sc,
-           float* o, int B, int N, int d, int g, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      subtile_max_piped_kernel<MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+// ----------------------------------------------------------------- f32 --
+
+constexpr int F_THREADS = 256;  // 8 warps
+constexpr int F_ROWS = 64;      // corpus rows per block
+constexpr int FQB = 64;         // queries per block
+constexpr int FKT = 32;         // d-slice per step
+
+// 256 threads, each owning 4 rows x 4 queries of the 64 x 64 block.
+__global__ void __launch_bounds__(F_THREADS)
+piped_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                 const uint8_t* __restrict__ valid, float* __restrict__ out, int B, int N,
+                 int d, int g) {
+  __shared__ float xs[FKT][F_ROWS + 4];  // k-major: rows contiguous
+  __shared__ float qs[FKT][FQB + 4];
+  __shared__ float ss[F_ROWS][FQB + 1];
+
+  const int n_qblk = (B + FQB - 1) / FQB;
+  const int b0 = (blockIdx.x % n_qblk) * FQB;
+  const long r0 = (long)(blockIdx.x / n_qblk) * F_ROWS;
+  const int tq = threadIdx.x % 16;  // queries tq*4 .. tq*4+3
+  const int tr = threadIdx.x / 16;  // rows tr*4 .. tr*4+3
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < d; k0 += FKT) {
+    for (int c = threadIdx.x; c < F_ROWS * FKT; c += F_THREADS) {
+      const int r = c / FKT, kk = c % FKT;
+      const long row = r0 + r;
+      xs[kk][r] = (row < N && k0 + kk < d) ? x[row * d + k0 + kk] : 0.0f;
+    }
+    for (int c = threadIdx.x; c < FQB * FKT; c += F_THREADS) {
+      const int r = c / FKT, kk = c % FKT;
+      const long qrow = b0 + r;
+      qs[kk][r] = (qrow < B && k0 + kk < d) ? q[qrow * d + k0 + kk] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < FKT; ++kk) {
+      float xr[4], qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xr[i] = xs[kk][tr * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qv[j] = qs[kk][tq * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xr[i], qv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ss[tr * 4 + i][tq * 4 + j] = acc[i][j];
+  __syncthreads();
+
+  const int n_out = F_ROWS / g;
+  const long n_sub = N / g;
+  const long t0 = r0 / g;
+  for (int i = threadIdx.x; i < FQB * n_out; i += F_THREADS) {
+    const int bq = i / n_out, w = i % n_out;
+    const long t = t0 + w;
+    if (b0 + bq >= B || t >= n_sub) continue;
+    float m = NEG;
+    for (int r = 0; r < g; ++r)
+      if (valid[r0 + (long)w * g + r]) m = fmaxf(m, ss[w * g + r][bq]);
+    out[(long)(b0 + bq) * n_sub + t] = m;
+  }
+}
+
+template <int QB, int MODE>
+int launch_wgmma(const void* q, const void* x, const uint8_t* v, const float* sc, float* o,
+                 int B, int N, int d, int g, cudaStream_t s) {
+  // TMA: 16-byte-aligned bases, rows a multiple of 16 bytes
+  const int elem = MODE == I8 ? 1 : 2;
+  if ((d * elem) % 16 != 0 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(x)) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, qmap;
+  const uint64_t xdims[2] = {(uint64_t)d, (uint64_t)N}, qdims[2] = {(uint64_t)d, (uint64_t)B};
+  const uint64_t stride[1] = {(uint64_t)d * elem};
+  const uint32_t kt = SLICE / elem;
+  const uint32_t xbox[2] = {kt, ROWS}, qbox[2] = {kt, QB};
+  // int8 codes are copied as bytes: a 128-element box is one swizzle row
+  const CUtensorMapDataType dt =
+      MODE == I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!hopper::make_map(&xmap, dt, x, 2, xdims, stride, xbox) ||
+      !hopper::make_map(&qmap, dt, q, 2, qdims, stride, qbox))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = piped_wgmma_kernel<QB, MODE>;
+  const int smem = Layout<QB>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int n_qblk = (B + QB - 1) / QB;
-  const int n_tiles = (N + ROWS - 1) / ROWS;
-  // two resident blocks per SM, the corpus split into `parts` strided
-  // streams of tiles per query block
-  int parts = (2 * sms + n_qblk - 1) / n_qblk;
-  if (parts > n_tiles) parts = n_tiles;
-  if (parts < 1) parts = 1;
-  const long blocks = (long)parts * n_qblk;
-  subtile_max_piped_kernel<MODE><<<(unsigned)blocks, THREADS, SMEM_BYTES, s>>>(
-      q, x, v, sc, o, B, N, d, g, parts);
+  const long tiles = (long)((N + ROWS - 1) / ROWS) * ((B + QB - 1) / QB);
+  const int grid = (int)(tiles < hopper::sm_count() ? tiles : hopper::sm_count());
+  kernel<<<grid, THREADS, smem, s>>>(xmap, qmap, v, sc, o, B, N, d, g);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_mode(const void* q, const void* x, const uint8_t* v, const float* sc, float* o,
+                int B, int N, int d, int g, cudaStream_t s) {
+  // a 128-query block while it covers B, else 256
+  if (B <= 128) return launch_wgmma<128, MODE>(q, x, v, sc, o, B, N, d, g, s);
+  return launch_wgmma<256, MODE>(q, x, v, sc, o, B, N, d, g, s);
 }
 
 }  // namespace
 
 // C entry, bound with ctypes. mode: 0 = float32, 1 = bfloat16, 2 = int8
 // (block scales; `scale` (N,) f32, scale[t*g] stands for sub-tile t). The
-// caller guarantees contiguous device buffers whose rows are a multiple of
-// 16 bytes and start 16-byte aligned, N % g == 0 and g in {16, 32, 64, 128}.
-// Launches on `stream`, does not synchronise, and returns cudaGetLastError()
+// caller guarantees contiguous device buffers, N % g == 0 and g in
+// {16, 32, 64}; for bf16 and int8 also 16-byte-aligned q and x and rows of
+// a multiple of 16 bytes (else cudaErrorInvalidValue). Launches on
+// `stream`, does not synchronise, and returns the CUDA error of the launch
 // (0 on success).
-extern "C" int subtile_max_piped_launch(const void* q, const void* x,
-                                        const void* valid, const void* scale,
-                                        void* out, int B, int N, int d, int g,
-                                        int mode, void* stream) {
+extern "C" int subtile_max_piped_launch(const void* q, const void* x, const void* valid,
+                                        const void* scale, void* out, int B, int N, int d,
+                                        int g, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   if (N <= 0 || B <= 0) return 0;
+  if (g != 16 && g != 32 && g != 64) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case F32: return launch<F32>(q, x, v, sc, o, B, N, d, g, s);
-    case BF16: return launch<BF16>(q, x, v, sc, o, B, N, d, g, s);
+    case F32: {
+      const long blocks = (((long)N + F_ROWS - 1) / F_ROWS) * ((B + FQB - 1) / FQB);
+      piped_f32_kernel<<<(unsigned)blocks, F_THREADS, 0, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(x), v, o, B, N, d, g);
+      return (int)cudaGetLastError();
+    }
+    case BF16: return launch_mode<BF16>(q, x, v, sc, o, B, N, d, g, s);
     case I8:
       if (sc == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<I8>(q, x, v, sc, o, B, N, d, g, s);
+      return launch_mode<I8>(q, x, v, sc, o, B, N, d, g, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,10 @@ matrix in device memory.
 Counterpart of ``rag_arc_tpu/ops/fused_mips.py::fused_mips_topk`` (the
 "r1" kernel ``_fused_kernel`` at :50, driven by the kernel probe). On the card it
 runs the hand-written CUDA kernels of ``csrc/fused_mips.cu`` (a grid of
-query block x corpus split keeping running lists in shared memory, then a
-merge of the splits' lists); on the CPU it runs
+corpus split x query block keeping running lists in shared memory: bf16
+scores on ``wgmma`` in a warpgroup ping-pong, filtered in registers against
+each query's k-th and folded under the next tile's products; then a merge
+of the splits' lists); on the CPU it runs
 :func:`fused_mips_topk_plain`, which follows the TPU kernel's rules tile by
 tile.
 
@@ -20,7 +22,9 @@ The function, read from the TPU kernel:
   in-tile column desc);
 - dead rows never enter; slots beyond the live count are (NEG, -1);
 - ``skip_tiles`` (the threshold early exit) does not change the result: a
-  score at or below a query's current k-th loses to the running list.
+  score at or below a query's current k-th loses to the running list. The
+  plain version keeps the TPU's extraction rounds for both values; the
+  kernel serves both through its threshold filter.
 
 Metrics: cosine (queries normalized here, corpus pre-normalized), ip, and
 l2 as ``-(‖q‖² - 2 q·x + ‖x‖²)`` with the corpus ``sqnorm``.
@@ -29,6 +33,7 @@ l2 as ``-(‖q‖² - 2 q·x + ‖x‖²)`` with the corpus ``sqnorm``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -36,13 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from rag_arc_tpu_torch.ops._build import Built, build
-from rag_arc_tpu_torch.ops.subtile_max import NEG
+from rag_arc_tpu_torch.ops.subtile_max import NEG, tma_operands
 from rag_arc_tpu_torch.ops.topk import stable_topk
 from rag_arc_tpu_torch.ops.two_level import prepare_queries
 
 MAX_K = 128  # list entries a block of the kernel keeps per query
 
-_CHUNK_ROWS = 128  # corpus rows the kernel scores per step
+SMEM_LIMIT = 232_448  # shared memory an H100 block may take (227 KB)
 _FLIP = 0x7FFFFFFF
 
 # kernel launches since the count was last set to 0; only the wrapper's
@@ -152,14 +157,49 @@ def load() -> Built:
     return built
 
 
-def _splits(device, n: int, b: int) -> Tuple[int, int]:
-    """(splits, chunks per split): about four blocks per SM in all."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_chunks = -(-n // _CHUNK_ROWS)
-    n_qblk = -(-b // 64)
-    splits = max(1, min(n_chunks, -(-4 * sms // n_qblk)))
-    per = -(-n_chunks // splits)
-    return -(-n_chunks // per), per
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """How the kernel cuts one call: a grid of ``splits`` corpus splits of
+    ``per`` tiles of ``rows`` rows each, times query blocks of ``qb``, each
+    block taking ``smem`` bytes of shared memory."""
+
+    qb: int
+    rows: int
+    splits: int
+    per: int
+    smem: int
+
+
+def _bf16_smem(qb: int, k: int) -> int:
+    """The bf16 kernel's shared memory (``WLayout`` in the source): 1 KB
+    alignment slack, a 4-stage ring of 64-row corpus and qb-query slices
+    of 128 bytes, 64 candidates a query, counts and ‖q‖², 8 mbarriers,
+    and the (qb, k) lists of scores and positions."""
+    return 1024 + 4 * (64 * 128 + qb * 128) + qb * 64 * 8 + qb * 8 + 64 + qb * k * 8
+
+
+def _f32_smem(k: int) -> int:
+    """The f32 kernel's: a 3-stage ring of 128-row and 64-query 80-byte
+    rows, the (64, 132) f32 score slab and the (64, k) lists."""
+    return 3 * (128 * 80 + 64 * 80) + 64 * 132 * 4 + 64 * k * 8
+
+
+def schedule(n: int, b: int, k: int, sms: int, dtype: torch.dtype) -> Schedule:
+    """The kernel's grid for N = ``n`` rows, B = ``b`` queries and k on a
+    card of ``sms`` SMs. bf16: 64-row tiles, a query block of 128 (64 when
+    B ≤ 64, or when k's lists would not fit beside the ring), and about one
+    block per SM; f32: 128-row chunks, 64 queries, about four blocks per SM.
+    Every tile lies in exactly one split."""
+    if dtype == torch.bfloat16:
+        qb = 64 if b <= 64 or _bf16_smem(128, k) > SMEM_LIMIT else 128
+        rows, smem, target = 64, _bf16_smem(qb, k), sms
+    else:
+        qb, rows, smem, target = 64, 128, _f32_smem(k), 4 * sms
+    n_tiles = -(-n // rows)
+    n_qblk = -(-b // qb)
+    splits = max(1, min(n_tiles, target // n_qblk))
+    per = -(-n_tiles // splits)
+    return Schedule(qb, rows, -(-n_tiles // per), per, smem)
 
 
 def fused_mips_topk(
@@ -182,7 +222,10 @@ def fused_mips_topk(
     here. k ≤ ``MAX_K``.
 
     CPU tensors take :func:`fused_mips_topk_plain`; CUDA tensors launch the
-    kernels on the current stream or raise."""
+    kernels on the current stream or raise. Operands that the kernels'
+    loads cannot describe (a view off a 16-byte boundary, rows not a
+    multiple of 16 bytes) are copied first (``subtile_max.tma_operands``);
+    ``skip_tiles`` picks the plain version's schedule only."""
     global launches
     del q_block
     _check(queries, corpus, valid, sqnorm, k, tile_n, metric)
@@ -200,11 +243,6 @@ def fused_mips_topk(
         raise ValueError("fused_mips kernel needs contiguous tensors")
     b, d = qc.shape
     n = corpus.shape[0]
-    if d * corpus.element_size() % 16 or corpus.data_ptr() % 16:
-        raise ValueError(
-            "fused_mips kernel copies 16 bytes at a time: rows must be a multiple "
-            "of 16 bytes and start 16-byte aligned"
-        )
     if n >= 2**31 or b * d >= 2**31:
         raise ValueError("fused_mips kernel indexes rows with 32-bit ints")
     out_s = torch.empty((b, k), dtype=torch.float32, device=corpus.device)
@@ -216,9 +254,12 @@ def fused_mips_topk(
         q32 = qc.float()
         q_sq = torch.sum(q32 * q32, dim=1).contiguous()
         sq = sqnorm.float().contiguous()
-    splits, per = _splits(corpus.device, n, b)
-    part_s = torch.empty((splits, b, k), dtype=torch.float32, device=corpus.device)
-    part_p = torch.empty((splits, b, k), dtype=torch.int32, device=corpus.device)
+    qc, corpus = tma_operands(qc, corpus)
+    d = corpus.shape[1]
+    sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
+    plan = schedule(n, b, k, sms, corpus.dtype)
+    part_s = torch.empty((plan.splits, b, k), dtype=torch.float32, device=corpus.device)
+    part_p = torch.empty((plan.splits, b, k), dtype=torch.int32, device=corpus.device)
     idx_bits = packed_bits(tile_n, packed)
     fn = load().lib.fused_mips_launch
     with torch.cuda.device(corpus.device):
@@ -227,7 +268,7 @@ def fused_mips_topk(
             qc.data_ptr(), corpus.data_ptr(), valid.view(torch.uint8).data_ptr(),
             None if q_sq is None else q_sq.data_ptr(), None if sq is None else sq.data_ptr(),
             part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(), out_p.data_ptr(),
-            b, n, d, k, tile_n, int(idx_bits > 0), idx_bits, int(skip_tiles), splits, per,
+            b, n, d, k, tile_n, int(idx_bits > 0), idx_bits, plan.splits, plan.per, plan.qb,
             _DTYPE_CODE[corpus.dtype], stream,
         )
     if err != 0:

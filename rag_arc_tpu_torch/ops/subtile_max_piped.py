@@ -4,9 +4,10 @@ Counterpart of ``rag_arc_tpu/ops/two_level_stream.py:53`` ``_stream_kernel_piped
 (``subtile_max_stream(pipelined=True)``): the TPU kernel that issues tile
 i's matmul before it reduces tile i-1's score slab, so the MXU and the VPU
 overlap. On the card it runs the hand-written CUDA kernel
-``csrc/subtile_max_piped.cu`` (MMA warps and reduce warps handing two score
-slabs back and forth, a cp.async ring under them; the source says what
-overlaps with what); on the CPU it runs the plain version.
+``csrc/subtile_max_piped.cu`` (bf16 and int8: two consumer warpgroups in
+ping-pong on ``wgmma``, one issuing a tile's products while the other
+reduces the tile before, fed by a TMA ring; f32 on CUDA cores; the source
+says what overlaps with what); on the CPU it runs the plain version.
 
 It computes the function of the port's other producers, masked like them:
 bf16/f32 corpora give ``ops/subtile_max.py``'s (B, N/g) maxima (plain
@@ -27,12 +28,15 @@ import torch
 
 from rag_arc_tpu_torch.ops._build import Built, build
 from rag_arc_tpu_torch.ops.subtile_max import (
-    KERNEL_MAX_G,
     SUPPORTED_G,
     subtile_max_plain,
+    tma_operands,
     widen_g,
 )
 from rag_arc_tpu_torch.ops.subtile_max_i8 import MAX_DIM, subtile_max_i8_plain
+
+# rows a kernel tile reduces: a wider g is served from g = 64 maxima
+KERNEL_MAX_G = 64
 
 # kernel launches since the count was last set to 0; only the wrapper's
 # CUDA branch adds to it
@@ -107,8 +111,11 @@ def subtile_max_piped(
     corpus's per-row scales, one shared by every g-row sub-tile.
 
     CPU tensors take :func:`subtile_max_piped_plain`; CUDA tensors launch
-    the kernel on the current stream or raise. g = 256 runs the kernel at
-    g = 128 and takes the pairwise max."""
+    the kernel on the current stream or raise. g = 128 and 256 run the
+    kernel at g = 64 and take the exact max of neighbours (:func:`widen_g`).
+    bf16 and int8 operands that TMA cannot describe (a view off a 16-byte
+    boundary, rows not a multiple of 16 bytes) are copied first
+    (``subtile_max.tma_operands``)."""
     global launches
     _check(queries, corpus, valid, g, scale)
     if corpus.device.type == "cpu":
@@ -122,18 +129,15 @@ def subtile_max_piped(
         raise ValueError("subtile_max_piped kernel needs contiguous tensors")
     b, d = queries.shape
     n = corpus.shape[0]
-    row_bytes = d * corpus.element_size()
-    if row_bytes % 16 or queries.data_ptr() % 16 or corpus.data_ptr() % 16:
-        raise ValueError(
-            "subtile_max_piped kernel copies 16 bytes at a time: rows must be a "
-            "multiple of 16 bytes and start 16-byte aligned"
-        )
     if n >= 2**31 or b * d >= 2**31:
         raise ValueError("subtile_max_piped kernel indexes rows with 32-bit ints")
     kg = min(g, KERNEL_MAX_G)
     out = torch.empty((b, n // kg), dtype=torch.float32, device=corpus.device)
     if b == 0 or n == 0:
         return widen_g(out, g, kg)
+    if corpus.dtype != torch.float32:
+        queries, corpus = tma_operands(queries, corpus)
+        d = corpus.shape[1]
     fn = load().lib.subtile_max_piped_launch
     with torch.cuda.device(corpus.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -12,6 +12,7 @@ import torch
 
 from rag_arc_tpu.ops.fused_mips import fused_mips_topk as jax_fused
 from rag_arc_tpu_torch.ops import fused_mips as fm
+from rag_arc_tpu_torch.ops import subtile_max as sm
 
 
 @pytest.fixture(autouse=True)
@@ -141,3 +142,58 @@ def test_cpu_wrapper_does_not_count():
     q, x, valid, sqnorm = (torch.from_numpy(a) for a in _data(5, n=1024))
     fm.fused_mips_topk(q, x, valid, sqnorm, 4, tile_n=512)
     assert fm.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 100, 128])
+def test_schedule_covers_every_tile_once_and_fits(dtype, k):
+    # the kernel's grid at several card sizes: every tile in exactly one
+    # split, no split empty, and the block's shared memory within 227 KB
+    for sms in (132, 114, 8):
+        for n in (2_002_944, 262_144, 1000, 64):
+            for b in (1, 7, 64, 65, 256, 257, 512):
+                plan = fm.schedule(n, b, k, sms, dtype)
+                n_tiles = -(-n // plan.rows)
+                assert plan.splits * plan.per >= n_tiles
+                assert (plan.splits - 1) * plan.per < n_tiles
+                assert plan.smem <= fm.SMEM_LIMIT
+                assert plan.qb in (64, 128) and plan.rows in (64, 128)
+                if dtype == torch.bfloat16:
+                    # the grid fills the card once where the batch allows it
+                    assert plan.splits * -(-b // plan.qb) <= max(sms, -(-b // plan.qb))
+    # large k takes the smaller query block: its lists would not fit
+    big = fm.schedule(2_002_944, 512, k, 132, torch.bfloat16)
+    assert big.qb == (128 if k <= 64 else 64)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_plain_at_tile_2048_and_k128_matches_jax(packed):
+    # the probe's tile at the largest k: more slots than one tile's live
+    # rows can fill on the first tile of several
+    q, x, valid, sqnorm = _data(6, n=4096, d=16, b=4)
+    js, jp, ts, tp = _both(q, x, valid, sqnorm, fm.MAX_K, 2048, "cosine", True, packed)
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_allclose(ts, js, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_tma_operands_route_keeps_the_result(dtype, metric):
+    # the kernel wrapper's copy (d = 100 padded to 16 bytes, a view off a
+    # 16-byte boundary) leaves the function unchanged: integer data, so the
+    # padded zero columns change no dot in any summation order
+    rng = np.random.default_rng(7)
+    n, d, b = 2048, 100, 5
+    x = torch.from_numpy(rng.integers(-2, 3, (n, d)).astype(np.float32)).to(dtype)
+    q = torch.from_numpy(rng.integers(-2, 3, (b, d)).astype(np.float32)).to(dtype)
+    valid = torch.from_numpy(rng.random(n) > 0.05)
+    sq = (x.float() * x.float()).sum(1)
+    xv = torch.cat([x.new_zeros(3), x.flatten()])[3:].view(x.shape)
+    qv = torch.cat([q.new_zeros(3), q.flatten()])[3:].view(q.shape)
+    qp, xp = sm.tma_operands(qv, xv)
+    assert xp.shape[1] * xp.element_size() % 16 == 0 and xp.data_ptr() % 16 == 0
+    for skip, packed in ((False, False), (True, True)):
+        want = fm.fused_mips_topk_plain(q, x, valid, sq, 10, 1024, metric, skip, packed)
+        got = fm.fused_mips_topk_plain(qp, xp, valid, sq, 10, 1024, metric, skip, packed)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])

@@ -769,9 +769,75 @@ def test_piped_g256_and_refusals(cuda):
     q, x, valid = _inputs(4096, 64, 9, torch.bfloat16, cuda)
     got = smp.subtile_max_piped(q, x, valid, 256)
     torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, 256), atol=1e-4, rtol=0)
+    # d = 100 is no longer refused: the wrapper pads it for TMA
     q, x, valid = _inputs(1024, 100, 4, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="16 bytes"):
-        smp.subtile_max_piped(q, x, valid, 16)
+    got = smp.subtile_max_piped(q, x, valid, 16)
+    torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, 16), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="must share"):
+        smp.subtile_max_piped(q.float(), x, valid, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        smp.subtile_max_piped(q.T.contiguous().T, x, valid, 16)
+
+
+@pytest.mark.parametrize("b", [1, 7, 130, 512])
+@pytest.mark.parametrize("g", [16, 32, 64, 128, 256])
+def test_piped_batches_and_widths(cuda, b, g):
+    """The ping-pong kernel at every g (128 and 256 served from g = 64), a
+    ragged query block and whole dead sub-tiles: one launch a call."""
+    q, x, valid = _inputs(8192, 64, b, torch.bfloat16, cuda, seed=b + g)
+    valid[1024:1536] = False
+    x[~valid] = 0
+    before = smp.launches
+    got = smp.subtile_max_piped(q, x, valid, g)
+    torch.cuda.synchronize()
+    assert smp.launches == before + 1
+    torch.testing.assert_close(got, sm.subtile_max_plain(q, x, valid, g), atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, sm.subtile_max(q, x, valid, g), atol=1e-4, rtol=0)
+    assert (got[:, 1024 // g : 1536 // g] == sm.NEG).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d,offset", [(100, 0), (64, 3), (100, 5)])
+def test_piped_on_padded_and_offset_operands(cuda, dtype, d, offset):
+    """The wrapper's TMA copies: d = 100 zero-padded, views off a 16-byte
+    boundary; int8 bit for bit."""
+    rng = np.random.default_rng(d + offset)
+    n, b = 4096, 33
+    if dtype == torch.int8:
+        x = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(cuda)
+        q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(np.int8)).to(cuda)
+        valid = torch.from_numpy(rng.random(n) > 0.05).to(cuda)
+        scale = torch.from_numpy(np.repeat(rng.random(n // 16).astype(np.float32), 16)).to(cuda)
+    else:
+        q, x, valid = _inputs(n, d, b, dtype, cuda, seed=d + offset)
+        scale = None
+    qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+    xv = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+    got = smp.subtile_max_piped(qv, xv, valid, 16, scale=scale)
+    torch.cuda.synchronize()
+    want = smp.subtile_max_piped_plain(q, x, valid, 16, scale=scale)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b", [1, 7, 130, 512])
+@pytest.mark.parametrize("g", [16, 64, 256])
+def test_piped_int8_equals_subtile_max_i8_kernel(cuda, b, g):
+    rng = np.random.default_rng(b * g)
+    n, d = 8192, 768
+    codes = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(cuda)
+    q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(np.repeat(rng.random(n // g).astype(np.float32), g)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) > 0.05).to(cuda)
+    valid[2048:2560] = False
+    before = smp.launches
+    got = smp.subtile_max_piped(q, codes, valid, g, scale=scale)
+    torch.cuda.synchronize()
+    assert smp.launches == before + 1
+    assert torch.equal(got, smi8.subtile_max_i8(q, codes, scale, valid, g))
+    assert torch.equal(got, smi8.subtile_max_i8_plain(q, codes, scale, valid, g))
 
 
 @pytest.mark.parametrize("producer", ["stream", "stream_piped", "scan"])
@@ -798,9 +864,16 @@ def _int_inputs(n, d, b, device, seed=0):
 @pytest.mark.parametrize("metric", ["ip", "l2"])
 @pytest.mark.parametrize("skip,packed", [(False, False), (True, False), (True, True),
                                          (False, True)])
-@pytest.mark.parametrize("b,k", [(5, 10), (130, 4), (3, 128)])
-def test_fused_equals_plain_on_integer_data(cuda, metric, skip, packed, b, k):
+@pytest.mark.parametrize("b,k", [(5, 10), (130, 4), (3, 128), (1, 1), (7, 10), (256, 100),
+                                 (257, 128), (512, 10)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_equals_plain_on_integer_data(cuda, metric, skip, packed, b, k, dtype):
+    """Integer data: every dot exact in any order, so scores tie within
+    and across splits (8192 rows in 64-row tiles: a split boundary inside
+    every 1024-row packed tile) and the result is bit for bit the plain
+    version's, at small and large B and k, both query-block layouts."""
     q, x, valid, sq = _int_inputs(8192, 32, b, cuda)
+    x = x.to(dtype)
     before = fm.launches
     got_s, got_p = fm.fused_mips_topk(q, x, valid, sq, k, tile_n=1024, metric=metric,
                                       skip_tiles=skip, packed=packed)
@@ -809,6 +882,25 @@ def test_fused_equals_plain_on_integer_data(cuda, metric, skip, packed, b, k):
     want_s, want_p = fm.fused_mips_topk_plain(q, x, valid, sq, k, 1024, metric, skip, packed)
     assert torch.equal(got_p, want_p)
     assert torch.equal(got_s, want_s)
+
+
+def test_fused_split_boundaries_fall_inside_packed_tiles(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fm.schedule(8192, 5, 10, sms, torch.bfloat16)
+    cuts = {s * plan.per * plan.rows for s in range(1, plan.splits)}
+    assert any(c % 1024 for c in cuts)
+
+
+def _topk_equal_up_to_kth_ties(got, want, slack):
+    """ids equal except between candidates within `slack` of the k-th
+    score; scores within `slack`."""
+    gs, gp = (t.cpu() for t in got)
+    ws, wp = (t.cpu() for t in want)
+    assert float((gs - ws).abs().max()) <= slack
+    for i in range(gp.shape[0]):
+        diff = set(gp[i].tolist()) ^ set(wp[i].tolist())
+        score = dict(zip(gp[i].tolist() + wp[i].tolist(), gs[i].tolist() + ws[i].tolist()))
+        assert all(abs(score[p] - float(ws[i, -1])) <= slack for p in diff), i
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -822,6 +914,39 @@ def test_fused_matches_plain(cuda, dtype, metric):
                                               True, False)
     assert torch.equal(got_p, want_p)
     torch.testing.assert_close(got_s, want_s, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b", [1, 7, 256, 257, 512])
+@pytest.mark.parametrize("k", [1, 10, 100, 128])
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+def test_fused_batches_and_k(cuda, b, k, metric):
+    q, x, valid = _inputs(16384, 64, b, torch.bfloat16, cuda, seed=b + k)
+    sq = (x.float() * x.float()).sum(1)
+    for skip, packed in ((False, False), (True, True)):
+        got = fm.fused_mips_topk(q, x, valid, sq, k, tile_n=2048, metric=metric,
+                                 skip_tiles=skip, packed=packed)
+        want = fm.fused_mips_topk_plain(q, x, valid, sq, k, 2048, metric, skip, packed)
+        if packed:  # equal quanta up to the summation order: compare keys
+            bits = fm.packed_bits(2048, True)
+            kq = lambda s: (fm.quantize_keys(s, bits).long() >> bits).double()  # noqa: E731
+            _topk_equal_up_to_kth_ties((kq(got[0]), got[1]), (kq(want[0]), want[1]), 1.0)
+        else:
+            _topk_equal_up_to_kth_ties(got, want, 1e-5)
+        assert not bool(torch.isin(got[1], torch.nonzero(~valid).flatten()).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,offset", [(100, 0), (32, 3), (100, 5)])
+def test_fused_on_padded_and_offset_operands(cuda, dtype, d, offset):
+    q, x, valid, sq = _int_inputs(4096, d, 9, cuda, seed=d + offset)
+    x = x.to(dtype)
+    q = q.to(dtype)
+    qv = torch.cat([q.new_zeros(offset), q.flatten()])[offset:].view(q.shape)
+    xv = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+    got = fm.fused_mips_topk(qv, xv, valid, sq, 10, tile_n=1024, metric="l2", packed=True)
+    torch.cuda.synchronize()
+    want = fm.fused_mips_topk_plain(q, x, valid, sq, 10, 1024, "l2", False, True)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def test_fused_fewer_live_rows_than_k_and_refusals(cuda):

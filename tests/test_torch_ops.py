@@ -161,6 +161,33 @@ def test_piped_producer_int8_matches_tpu_piped_kernel(g):
     np.testing.assert_array_equal(got, raw.T * scale[::g][None, :])
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("g", [16, 128, 256])
+def test_piped_tma_operands_route_keeps_the_result(dtype, g):
+    # the kernel wrapper's copy (d = 100 padded to 16 bytes, a view off a
+    # 16-byte boundary) and its g > 64 route (g = 64 maxima, then the exact
+    # max of neighbours) leave the unpadded plain result unchanged;
+    # integer-valued data, so no summation order shows
+    rng = np.random.default_rng(19)
+    n, d, b = 4096, 100, 5
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.int8
+    x = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(np.float32)).to(tdt)
+    q = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(np.float32)).to(tdt)
+    valid = torch.from_numpy(rng.random(n) > 0.05)
+    valid[512:1024] = False
+    scale = torch.from_numpy(np.repeat(rng.random(n // 256).astype(np.float32) + 0.1, 256))
+    scale = scale if dtype == "int8" else None
+    xv = torch.cat([x.new_zeros(3), x.flatten()])[3:].view(x.shape)
+    qv = torch.cat([q.new_zeros(3), q.flatten()])[3:].view(q.shape)
+    qp, xp = sm.tma_operands(qv, xv)
+    assert xp.shape[1] * xp.element_size() % 16 == 0 and xp.data_ptr() % 16 == 0
+    want = smp.subtile_max_piped_plain(q, x, valid, g, scale=scale)
+    kg = min(g, smp.KERNEL_MAX_G)
+    got = sm.widen_g(smp.subtile_max_piped_plain(qp, xp, valid, kg, scale=scale), g, kg)
+    assert torch.equal(got, want)
+    assert (got[:, 512 // g : 1024 // g] == sm.NEG).all()
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_scan_producer_matches_jax_scan(dtype):
     if dtype == "int8":
