@@ -63,6 +63,23 @@ Phases, each printing its own lines and times:
      - bf16 cosine, 30 batches, the sustained run three times after an
        untimed warm-up pass: QPS and its spread, p50 batch time,
        recall@10;
+     - then the bf16 passes read back one batch at a time and through one
+       ``transfer_pool()`` flush a pass, in turns;
+     - bm25 hybrid: a 2,000,000-document zipf CSR corpus (vocab 50,000,
+       mean length 60, ``tools/bm25_synth.py``), the hybrid backend (f32
+       head) beside the host C++ scorer built from the same CSR; the head,
+       selective and mixed query profiles (B = 32, 4 batches streamed, 5
+       passes) and selective again with ``host_budget=0`` (the tail-only
+       program): ms per batch, QPS, routing, select launches, top-10
+       agreement 1.0 with the host scorer and scores within 1e-4; one
+       coalesced head batch split into head matmul, slab gather +
+       scatter-add, group max, select kernel and ``select_topk``, whose
+       kernel path is held against the plain tournament on the card; the
+       doc-major backend at 262,144 documents against the host scorer;
+     - multipath: the bf16 index and the 2M BM25 index over one position
+       space, k_path 50, RRF k 60, B = 32, 4 batches of selective
+       queries, each pass one ``transfer_pool()`` stream (one flush),
+       fused ids equal to ``RRFusion``'s;
      - bf16 l2 over the first 2^20 rows, 5 batches, recall@10 against an
        f32 l2 oracle;
      - int8 cosine with the default int4 residual refine and kf_mult 2, 30
@@ -78,6 +95,11 @@ Phases, each printing its own lines and times:
      - int8 with the first 16,384 of them; one batch of 512 verbatim texts
        and 4 single queries; then the store saved as a snapshot and loaded
        into a fresh store, with arrays and results compared bit for bit;
+     - hybrid retriever: ``MultiPathRetriever(shared_id_space=True)`` over
+       the bf16 store's retriever and ``BM25Retriever.from_documents`` of
+       its documents; 512 document texts through ``dispatch_batch`` (one
+       pool flush) and 8 through ``invoke``: the verbatim source in the
+       fused top 10 for >= 0.99 of them, per-stage times;
   6. rerank model: ``Qwen3LM`` at Qwen3-0.6B widths (28 x 1024, 16/8 heads
      of 128, vocab 151,936), bf16, seeded N(0, 0.02) weights; ``last_logits``
      on B = 64 x L = 512 random ids timed (pairs/s, ms per 50-candidate
@@ -151,6 +173,18 @@ TOL = 1e-4  # bf16 products are exact in f32: only the summation order differs
 RERANK_B = 64
 RERANK_L = 512
 RERANK_REPS = 5
+# sparse and hybrid retrieval: bench.py::bench_bm25_hybrid's corpus recipe
+# at 2M (its 10M waits for a benchmark), bench_multipath_e2e's fan-out
+BM25_N = 2_000_000
+BM25_VOCAB = 50_000
+BM25_MEAN_LEN = 60
+BM25_B = 32
+BM25_BATCHES = 4
+BM25_PASSES = 5
+BM25_DEVICE_N = 262_144  # the doc-major backend's parity corpus
+MULTI_K_PATH = 50
+RRF_K = 60
+HYBRID_QUERIES = 512
 H100_BF16_PEAK = 989e12  # dense bf16 FLOP/s, NVIDIA's data sheet (SXM, 700 W)
 H100_INT8_PEAK = 1979e12  # dense int8 OP/s, the same sheet
 H100_F32_PEAK = 67e12  # f32 FLOP/s outside the tensor cores, the same sheet
@@ -1154,7 +1188,7 @@ class Counter:
         return getattr(self.module, self.name)
 
 
-def phase_index(torch, sm, ss, dev, data) -> None:
+def phase_index(torch, sm, ss, dev, data):
     from rag_arc_tpu_torch.index.flat import DeviceFlatIndex
     from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore
 
@@ -1201,8 +1235,38 @@ def phase_index(torch, sm, ss, dev, data) -> None:
         "select + rescore": lambda: select_rescore(qc, index.emb, index.valid, sub, K, G),
         "query prep": lambda: prepare_queries(q, index.dtype, "cosine"),
     }, sub, min(K, sub.shape[1]))
-    del index, sub
+    del sub
+    pooled_passes(torch, index, batches)
     torch.cuda.empty_cache()
+    return index
+
+
+def pooled_passes(torch, index, batches) -> None:
+    """Sustained QPS of the dense passes read back one batch at a time
+    (``fetch_pair``) and through one ``transfer_pool()`` flush a pass, in
+    turns (plain, pooled, pooled, plain, plain, pooled)."""
+    from rag_arc_tpu_torch.index.flat import fetch_pair, pair_readback
+    from rag_arc_tpu_torch.utils.transfers import transfer_pool
+
+    def one(pooled: bool) -> float:
+        t0 = time.perf_counter()
+        if pooled:
+            with transfer_pool():
+                fetches = [pair_readback(*index.search_device(b, K)) for b in batches]
+            for f in fetches:
+                f()
+        else:
+            outs = [index.search_device(b, K) for b in batches]
+            for s, p in outs:
+                fetch_pair(s, p)
+        return BATCH * len(batches) / (time.perf_counter() - t0)
+
+    qps = {False: [], True: []}
+    for pooled in (False, True, True, False, False, True):
+        qps[pooled].append(one(pooled))
+    report(f"sustained QPS read back per batch {', '.join(f'{v:.1f}' for v in qps[False])}; "
+           f"through one TransferPool flush a pass {', '.join(f'{v:.1f}' for v in qps[True])} "
+           f"(host clock, {len(batches)} x {BATCH} queries a pass, in turns)")
 
 
 def phase_index_l2(torch, sm, ss, dev, data) -> int:
@@ -1332,6 +1396,398 @@ def phase_index_i8(torch, smi8, ss, dev, data) -> None:
     check(peak <= resident + 2**30, "B=1 int8 search peaked above resident + 1 GiB")
     del index
     torch.cuda.empty_cache()
+
+
+# -- sparse and hybrid retrieval ------------------------------------------------
+
+
+def bm25_agreement(got, want) -> tuple[float, float]:
+    """Mean top-K set agreement of ``got`` with ``want`` (both (scores,
+    positions)), and the largest relative difference of their sorted
+    scores."""
+    (gs, gp), (ws, wp) = got, want
+    agree = float(np.mean([len(set(gp[i].tolist()) & set(wp[i].tolist())) / K
+                           for i in range(len(wp))]))
+    a, b = np.sort(gs, axis=1), np.sort(ws, axis=1)
+    err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+    return agree, err
+
+
+def stream_ms(index, batches) -> list[float]:
+    """Host ms per batch of each of BM25_PASSES passes: every batch
+    dispatched (``search_dispatch``), then every result fetched; after one
+    untimed search."""
+    index.search(batches[0], K)
+    times = []
+    for _ in range(BM25_PASSES):
+        t0 = time.perf_counter()
+        pending = [index.search_dispatch(b, K) for b in batches]
+        for p in pending:
+            p.result()
+        times.append((time.perf_counter() - t0) / len(batches) * 1e3)
+    return times
+
+
+def bm25_split(torch, ss, ob, index, queries) -> None:
+    """Device ms of one coalesced head batch's hybrid program and of its
+    parts (CUDA events, mean of 5 after one call outside the window), and
+    the select_topk kernel path held against the plain tournament on the
+    card on that batch's score array."""
+    tail_only, packed, widths, slots = index._hybrid_operands(index._count_terms(queries))
+    check(not tail_only, "a head batch took the tail-only program")
+    b, h = len(queries), index._w_head.shape[0]
+    packed_d = index._upload(packed)
+    w_head, valid = index._w_head, index._hvalid
+    docs, weights = index._tail_docs_dev, index._tail_w_dev
+    q_head = packed_d[: b * h].reshape(b, h)
+    scores = ob.head_scores(q_head, w_head)
+    scores.masked_fill_(~valid[None, :], float("-inf"))
+    buckets, o = [], b * h
+    for width, s in zip(widths, slots):
+        buckets.append((packed_d[o : o + s], packed_d[o + s : o + 2 * s],
+                        packed_d[o + 2 * s : o + 3 * s], packed_d[o + 3 * s : o + 4 * s], width))
+        o += 4 * s
+    for st, ln, ct, qi, width in buckets:
+        ob._slab_add(scores, docs, weights, st, ln, ct, qi, width)
+    work = scores.clone()
+    n_pad = scores.shape[1]
+    g = 512
+    sub = torch.amax(scores.view(b, n_pad // g, g), dim=2)
+
+    def slabs():
+        for st, ln, ct, qi, width in buckets:
+            ob._slab_add(work, docs, weights, st, ln, ct, qi, width)
+
+    parts = {
+        "program": lambda: ob.bm25_hybrid_topk_flat(w_head, valid, docs, weights, packed_d, K,
+                                                    b, h, widths, slots),
+        "head matmul": lambda: ob.head_scores(q_head, w_head),
+        "mask": lambda: work.masked_fill_(~valid[None, :], float("-inf")),
+        "slab gather + scatter-add": slabs,
+        "group max": lambda: torch.amax(scores.view(b, n_pad // g, g), dim=2),
+        "select kernel": lambda: ss.iterative_argmax_resid(sub, K),
+        "select_topk (group max + select + gather + final top-k)":
+            lambda: ob.select_topk(scores, K),
+    }
+    t = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t[name] = cuda_ms(fn, 5)
+    head_bytes = w_head.numel() * w_head.element_size()
+    report(f"hybrid program, one coalesced head batch B={b} H={h} N_pad={n_pad} "
+           f"(buckets {list(widths)}, slabs {list(slots)}; CUDA events): "
+           + ", ".join(f"{n} {v:.3f} ms" for n, v in t.items())
+           + f"; the head matmul reads {head_bytes / 2**30:.2f} GiB "
+           f"({head_bytes / t['head matmul'] / 1e6:.1f} GB/s), the score array "
+           f"{b * n_pad * 4 / 2**20:.0f} MiB")
+    del work
+
+    got = ob.select_topk(scores, K)
+    torch.cuda.synchronize()
+    want = ob._coarse_topk(scores, K, g)  # the plain tournament, on the card
+    ws, wp = want
+    wp = torch.where(torch.isneginf(ws), -1, wp)
+    same = bool(torch.equal(got[0], ws) and torch.equal(got[1], wp))
+    report(f"select_topk on this score array (B={b}, C={n_pad // g} groups of {g}, k={K}): "
+           f"values and ids equal to the plain tournament's: {same}")
+    check(same, "select_topk's kernel path differs from the plain tournament")
+    in_turns(lambda: ob.select_topk(scores, K), lambda: ob._coarse_topk(scores, K, g),
+             f"select_topk B={b} N={n_pad} k={K}", b * n_pad, "T entries/s", b * n_pad * 4,
+             "of scores")
+    del scores, sub
+    torch.cuda.empty_cache()
+
+
+def tail_split(torch, ss, ob, index, queries) -> None:
+    """Device ms of one coalesced selective batch's tail-only program and
+    of its sort and select alone on arrays of the same shape (CUDA events,
+    mean of 5 after one call outside the window)."""
+    tail_only, packed, widths, slots = index._hybrid_operands(index._count_terms(queries))
+    check(tail_only, "a selective batch did not take the tail-only program")
+    b = len(queries)
+    packed_d = index._upload(packed)
+    window = sum(w * t for w, t in zip(widths, slots))
+    gen = torch.Generator(device=packed_d.device).manual_seed(SEED)
+    ids = torch.randint(-1, index.n_docs, (b, window), generator=gen, device=packed_d.device)
+    vals = torch.rand((b, window), generator=gen, device=packed_d.device)
+    parts = {
+        "program": lambda: ob.bm25_tail_only_topk(index._tail_docs_dev, index._tail_w_dev,
+                                                  packed_d, K, widths, slots),
+        "stable sort of the window": lambda: torch.sort(ids, dim=1, stable=True),
+        "select kernel over the window": lambda: ss.iterative_argmax_resid(vals, K),
+    }
+    t = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t[name] = cuda_ms(fn, 5)
+    report(f"tail-only program, one coalesced selective batch B={b} (window {window} slots, "
+           f"buckets {list(widths)}, slabs a query {list(slots)}; CUDA events): "
+           + ", ".join(f"{n} {v:.3f} ms" for n, v in t.items())
+           + f"; the rest (gather, {max(1, (window - 1).bit_length())} scan steps, run "
+           f"ends) {t['program'] - t['stable sort of the window'] - t['select kernel over the window']:.3f} ms")
+
+
+def phase_bm25(torch, ss, dev):
+    """The hybrid BM25 index at 2M documents against the host C++ scorer,
+    per query profile; the doc-major backend at 262,144 documents."""
+    from rag_arc_tpu_torch.index.bm25 import DeviceBM25Index
+    from rag_arc_tpu_torch.ops import bm25 as ob
+    from rag_arc_tpu_torch.tools.bm25_synth import (bm25_queries, csr_texts, mixed_queries,
+                                                    synth_csr)
+
+    phase(f"bm25 hybrid: {BM25_N} docs of zipf CSR (vocab {BM25_VOCAB}, mean length "
+          f"{BM25_MEAN_LEN}), f32 head, B={BM25_B}, {BM25_BATCHES} batches streamed, "
+          f"{BM25_PASSES} passes, k={K}")
+    t0 = time.perf_counter()
+    csr = synth_csr(np.random.default_rng(SEED), BM25_N, BM25_VOCAB, BM25_MEAN_LEN)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hybrid = DeviceBM25Index(backend="hybrid", device=dev)
+    hybrid.build_from_csr(*csr)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = DeviceBM25Index(backend="host", device=dev)
+    host.build_from_csr(*csr)
+    host_s = time.perf_counter() - t0
+    held = hybrid.device_bytes()
+    n_pad = hybrid._w_head.shape[1]
+    score_bytes = hybrid.DEV_COALESCE_MAX * n_pad * 4
+    report(f"synthesis {synth_s:.1f} s ({len(csr[1])} postings); hybrid build {build_s:.1f} s "
+           f"(host clock; C++ postings + head + tail to the card), host-only build "
+           f"{host_s:.1f} s; head terms {hybrid.stats()['head_terms']}, tail widths "
+           f"{list(hybrid._tail_widths)}; on the card: head "
+           f"{held['w_head'] / 2**30:.3f} GiB + tail "
+           f"{(held['tail_docs_dev'] + held['tail_w_dev']) / 2**30:.3f} GiB + the largest "
+           f"score array (B={hybrid.DEV_COALESCE_MAX}) {score_bytes / 2**30:.3f} GiB")
+
+    rng = np.random.default_rng(7)
+    n_q = BM25_B * BM25_BATCHES
+    head, sel = bm25_queries(rng, n_q, BM25_VOCAB)
+    mixed = mixed_queries(head, sel)
+    launches = 0
+    lines = []
+    for name, queries, budget in (("head", head, None), ("selective", sel, None),
+                                  ("mixed", mixed, None), ("selective, host_budget=0", sel, 0)):
+        hybrid.host_budget = budget
+        cut = budget if budget is not None else max(1 << 15, hybrid.n_docs // 16)
+        to_dev = sum(hybrid._estimated_entries([c]) > cut
+                     for c in hybrid._count_terms(queries))
+        batches = [queries[i * BM25_B : (i + 1) * BM25_B] for i in range(BM25_BATCHES)]
+        ss.launches = 0
+        times = stream_ms(hybrid, batches)
+        n_launch = ss.launches
+        launches += n_launch
+        ms = float(np.median(times))
+        got, want = hybrid.search(batches[0], K), host.search(batches[0], K)
+        agree, err = bm25_agreement(got, want)
+        tail_only = hybrid._hybrid_operands(hybrid._count_terms(batches[0]))[0]
+        lines.append(f"{name} {ms:.2f} ms = {BM25_B / ms * 1e3:.1f} QPS")
+        report(f"{name}: {to_dev}/{n_q} queries routed to the device; ms per batch "
+               f"{', '.join(f'{v:.2f}' for v in times)} (host clock, median {ms:.2f}, "
+               f"{BM25_B / ms * 1e3:.1f} QPS); select kernel launches {n_launch}; "
+               f"device batches take the {'tail-only' if tail_only else 'flat'} program; "
+               f"batch 0 vs the host scorer: top-{K} agreement {agree:.4f}, sorted scores "
+               f"within {err:.2e} relative")
+        check(agree == 1.0, f"bm25 {name}: top-{K} agreement {agree} with the host scorer")
+        check(err <= 1e-4, f"bm25 {name}: scores differ from the host scorer by {err}")
+        if to_dev:
+            check(n_launch > 0, f"bm25 {name}: the select kernel never launched")
+    hybrid.host_budget = None
+    report("bm25 hybrid per profile: " + "; ".join(lines))
+    check(launches > 0, "the select kernel never launched on the hybrid path")
+    bm25_split(torch, ss, ob, hybrid, head[: hybrid.DEV_COALESCE_MAX])
+    tail_split(torch, ss, ob, hybrid, sel[: hybrid.DEV_COALESCE_MAX])
+
+    n = BM25_DEVICE_N
+    e = int(csr[0][n])
+    sub = (csr[0][: n + 1], csr[1][:e], csr[2][:e], csr[3][:n])
+    t0 = time.perf_counter()
+    texts = csr_texts(*sub[:3])
+    doc_major = DeviceBM25Index(backend="device", device=dev)
+    doc_major.build_from_texts_native(texts)
+    small_host = DeviceBM25Index(backend="host", device=dev)
+    small_host.build_from_csr(*sub)
+    torch.cuda.synchronize()
+    dm_s = time.perf_counter() - t0
+    del texts
+    for name, queries in (("head", head[:BM25_B]), ("selective", sel[:BM25_B])):
+        t0 = time.perf_counter()
+        got = doc_major.search(queries, K)
+        ms = (time.perf_counter() - t0) * 1e3
+        agree, err = bm25_agreement(got, small_host.search(queries, K))
+        report(f"doc-major backend, {n} docs (Dmax {doc_major.stats()['dmax']}, built in "
+               f"{dm_s:.1f} s), {name} B={BM25_B}: {ms:.1f} ms (host clock, first call); "
+               f"agreement with the host scorer {agree:.4f}, scores within {err:.2e}")
+        check(agree == 1.0 and err <= 1e-4, f"doc-major backend differs from the host ({name})")
+    del doc_major, small_host, host, csr, sub
+    torch.cuda.empty_cache()
+    return hybrid, launches
+
+
+def phase_multipath(torch, sm, ss, dev, index, bm25, data) -> None:
+    """Dense (the 2M bf16 index) + BM25 (the 2M hybrid index) over one
+    position space, fused by RRF, each pass one TransferPool stream."""
+    from rag_arc_tpu_torch.ops.fusion_kernel import rrf_fuse_positions
+    from rag_arc_tpu_torch.tools.bm25_synth import bm25_queries
+    from rag_arc_tpu_torch.utils.data_model import Document
+    from rag_arc_tpu_torch.utils.fusion import RRFusion, results_from_ranked_docs
+    from rag_arc_tpu_torch.utils.transfers import transfer_pool
+
+    phase(f"multipath: dense {CORPUS_N} x {DIM} bf16 + bm25 hybrid {BM25_N}, k_path "
+          f"{MULTI_K_PATH}, RRF k {RRF_K}, B={BM25_B}, {BM25_BATCHES} batches, selective "
+          f"profile, {BM25_PASSES} passes")
+    check(index.size == bm25.n_docs, "the two paths do not share one position space")
+    _, sel = bm25_queries(np.random.default_rng(11), BM25_B * BM25_BATCHES, BM25_VOCAB)
+    dense_q = [data["queries"][i * BM25_B : (i + 1) * BM25_B] for i in range(BM25_BATCHES)]
+    toks = [sel[i * BM25_B : (i + 1) * BM25_B] for i in range(BM25_BATCHES)]
+    index.search_dispatch(dense_q[0], MULTI_K_PATH)()
+    bm25.search(toks[0], MULTI_K_PATH)
+
+    def one_pass():
+        with transfer_pool() as pool:
+            dense = [index.search_dispatch(q, MULTI_K_PATH) for q in dense_q]
+            sparse = [bm25.search_dispatch(t, MULTI_K_PATH) for t in toks]
+            for p in sparse:
+                p.prime()
+        out = []
+        for d, s in zip(dense, sparse):
+            _, dp = d()
+            _, bp = s.result()
+            pos = torch.from_numpy(np.stack([dp, bp], axis=1).astype(np.int32))
+            out.append((dp, bp, rrf_fuse_positions(pos, K, RRF_K)[1].numpy()))
+        return out, pool.flushes
+
+    sm.launches = ss.launches = 0
+    times, flushes = [], []
+    for _ in range(BM25_PASSES):
+        t0 = time.perf_counter()
+        out, n_flush = one_pass()
+        times.append((time.perf_counter() - t0) / BM25_BATCHES * 1e3)
+        flushes.append(n_flush)
+    launches = {"subtile_max": sm.launches, "subtile_select": ss.launches}
+    ms = float(np.median(times))
+    report(f"ms per batch {', '.join(f'{v:.2f}' for v in times)} (host clock, median "
+           f"{ms:.2f}, {BM25_B / ms * 1e3:.1f} QPS; dense dispatched first, then bm25, "
+           f"primed, then fetched and fused); pool flushes per pass {flushes}; kernel "
+           f"launches {launches} (at B={BM25_B} the dense index takes its direct path: "
+           f"{4 * BM25_B * index.capacity} score bytes within its "
+           f"{index.SCORE_BYTES_BUDGET} budget)")
+    check(all(f == 1 for f in flushes), f"pool flushes per stream {flushes}, not 1")
+
+    dp, bp, fused = out[0]
+    fusion = RRFusion(k=RRF_K)
+    agree = 0
+    for i in range(BM25_B):
+        paths = [results_from_ranked_docs([Document(content=f"d{x}", id=str(x))
+                                           for x in pos[i] if x >= 0], source=src)
+                 for pos, src in ((dp, "dense"), (bp, "bm25"))]
+        want = [int(d.id) for d in fusion.fuse(paths, K)]
+        agree += want == [int(x) for x in fused[i] if x >= 0]
+    report(f"fused ids equal to RRFusion.fuse over the two paths' results: "
+           f"{agree}/{BM25_B} queries")
+    check(agree == BM25_B, f"fused ids differ from RRFusion on {BM25_B - agree} queries")
+
+    q = torch.from_numpy(dense_q[0]).to(dev)
+    direct = cuda_ms(lambda: index.search_device(q, MULTI_K_PATH), 5)
+    index._force_two_level = True
+    try:
+        index.search_device(q, MULTI_K_PATH)
+        torch.cuda.synchronize()
+        two_level = cuda_ms(lambda: index.search_device(q, MULTI_K_PATH), 5)
+    finally:
+        index._force_two_level = False
+    report(f"one dense B={BM25_B} k={MULTI_K_PATH} search: direct path {direct:.3f} ms, "
+           f"two-level kernel path {two_level:.3f} ms (CUDA events, mean of 5)")
+
+
+def phase_hybrid_retriever(torch, sm, ss, dev, store) -> int:
+    """MultiPathRetriever(shared_id_space=True) over the e2e store's
+    retriever and a BM25Retriever of the same documents, end to end."""
+    from rag_arc_tpu_torch.index.vector_store import get_tracer
+    from rag_arc_tpu_torch.retrieval.bm25 import BM25Retriever
+    from rag_arc_tpu_torch.retrieval.multipath import MultiPathRetriever
+    from rag_arc_tpu_torch.utils.data_model import Document
+    from rag_arc_tpu_torch.utils.transfers import transfer_pool
+
+    phase(f"hybrid retriever: MultiPathRetriever(shared_id_space=True) over the e2e store "
+          f"({len(store)} docs) and a BM25Retriever (hybrid backend) of the same documents; "
+          f"{HYBRID_QUERIES} document texts as queries, k={K}")
+    docs = [store.docstore.get_by_position(i) for i in range(len(store))]
+    t0 = time.perf_counter()
+    sparse = BM25Retriever.from_documents(
+        [Document(content=d.content, id=d.id) for d in docs], k=K, backend="hybrid",
+        device=dev)
+    bm25_s = time.perf_counter() - t0
+    multi = MultiPathRetriever([store.as_retriever(search_kwargs={"k": K}), sparse],
+                               top_k=K, top_k_per_retriever=MULTI_K_PATH, shared_id_space=True)
+    picks = np.random.default_rng(SEED + 5).choice(len(docs), size=HYBRID_QUERIES,
+                                                   replace=False)
+    queries = [docs[i].content for i in picks]
+    counts = sparse.index._count_terms([q.lower().split() for q in queries])
+    cut = max(1 << 15, sparse.index.n_docs // 16)
+    to_dev = sum(sparse.index._estimated_entries([c]) > cut for c in counts)
+    multi.dispatch_batch(queries[:8])()  # warm: validates the shared id space
+    check(multi._shared_ok is True, "the shared id space did not validate")
+
+    get_tracer().reset()
+    sm.launches = ss.launches = 0
+    t0 = time.perf_counter()
+    with transfer_pool() as pool:
+        fetch = multi.dispatch_batch(queries)
+        t_dispatch = time.perf_counter() - t0
+        fetch.prime()
+    out = fetch()
+    total = time.perf_counter() - t0
+    launches = {"subtile_max": sm.launches, "subtile_select": ss.launches}
+    stages = get_tracer().summary()
+    found = sum(docs[i].id in [d.id for d in row] for i, row in zip(picks, out))
+    first = sum(bool(row) and row[0].id == docs[i].id for i, row in zip(picks, out))
+    for row in out:
+        check(len(row) == K and all(isinstance(d, Document) and "fusion_score" in d.metadata
+                                    for d in row), "the hybrid retriever returned a bad row")
+    t_sparse = time.perf_counter()
+    sparse.index.search([q.lower().split() for q in queries], MULTI_K_PATH)
+    t_sparse = time.perf_counter() - t_sparse
+    report(f"dispatch_batch of {HYBRID_QUERIES}: {total * 1e3:.1f} ms = "
+           f"{HYBRID_QUERIES / total:.1f} QPS (host clock; dispatch {t_dispatch * 1e3:.1f} ms "
+           f"of it, the bm25 path alone {t_sparse * 1e3:.1f} ms, {to_dev} of its queries "
+           f"routed to the device); store stages (host ms): "
+           + ", ".join(f"{n} {v['total_ms']:.1f}" for n, v in sorted(stages.items()))
+           + f"; pool flushes {pool.flushes}; kernel launches {launches}; bm25 build "
+           f"{bm25_s:.1f} s")
+    report(f"verbatim source in the fused top {K}: {found}/{HYBRID_QUERIES} = "
+           f"{found / HYBRID_QUERIES:.4f}; first: {first / HYBRID_QUERIES:.4f}")
+    check(found >= 0.99 * HYBRID_QUERIES,
+          f"hybrid retriever: only {found}/{HYBRID_QUERIES} sources in the top {K}")
+    check(pool.flushes == 1, f"the hybrid stream flushed {pool.flushes} times")
+    check(launches["subtile_max"] >= 1 and launches["subtile_select"] >= 1,
+          "the dense branch did not launch its kernels")
+
+    emb = store.embedding
+    ids, mask = emb.tokenizer.batch_encode(queries)
+    length = emb._bucket_len(ids.shape[1])
+    ids_d = torch.from_numpy(np.pad(ids, ((0, 0), (0, length - ids.shape[1])))).to(dev)
+    mask_d = torch.from_numpy(np.pad(mask, ((0, 0), (0, length - mask.shape[1])))).to(dev)
+    dense_ms = cuda_ms(lambda: store.index.search_device(emb.encode_device(ids_d, mask_d),
+                                                         MULTI_K_PATH), 3)
+    report(f"device: the dense branch (encode + search, B={HYBRID_QUERIES}, k_path "
+           f"{MULTI_K_PATH}) {dense_ms:.3f} ms (CUDA events, mean of 3)")
+
+    found = 0
+    t0 = time.perf_counter()
+    for i in picks[:N_SINGLE]:
+        got = multi.invoke(docs[i].content)
+        check(len(got) == K, "invoke did not return k Documents")
+        found += docs[i].id in [d.id for d in got]
+    single_ms = (time.perf_counter() - t0) / N_SINGLE * 1e3
+    report(f"invoke: {N_SINGLE} single queries, {single_ms:.2f} ms each (host clock), "
+           f"source in the top {K} for {found}/{N_SINGLE}")
+    check(found == N_SINGLE, f"invoke found {found}/{N_SINGLE} sources")
+    del sparse, multi
+    return launches["subtile_select"]
 
 
 def make_docs(rng) -> list[str]:
@@ -1976,12 +2432,17 @@ def main() -> int:
         kernel_stream = phase_kernel_stream(torch, cst, dev)
         probe_launches = phase_probe(torch, smp, fm, cst, dev)
         data = make_index_data(torch, dev)
-        phase_index(torch, sm, ss, dev, data)
+        index = phase_index(torch, sm, ss, dev, data)
+        bm25, bm25_launches = phase_bm25(torch, ss, dev)
+        phase_multipath(torch, sm, ss, dev, index, bm25, data)
+        del index, bm25
+        torch.cuda.empty_cache()
         l2_launches = phase_index_l2(torch, sm, ss, dev, data)
         phase_index_i8(torch, smi8, ss, dev, data)
         del data
         e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, ss, dev)
         i8_launches = phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts)
+        hybrid_launches = phase_hybrid_retriever(torch, sm, ss, dev, store)
         qwen3, qwen3_ref = phase_rerank_model(torch, rp, fa, dev)
         rope_launches, flash_launches = phase_rerank_e2e(
             torch, rp, fa, dev, store, texts, qwen3, qwen3_ref)
@@ -2006,7 +2467,9 @@ def main() -> int:
          "launches": i8_launches, **kernel_i8},
         {"name": "subtile_select", "route": "cuda", "source": src + "subtile_select.cu",
          "replaces": "rag_arc_tpu/ops/two_level.py:416 (XLA program, no Pallas)",
-         "launches": e2e_launches["subtile_select"], **kernel_select},
+         "launches": e2e_launches["subtile_select"],
+         "launches_bm25_hybrid": bm25_launches,
+         "launches_hybrid_retriever": hybrid_launches, **kernel_select},
         {"name": "rope_prep", "route": "cuda", "source": src + "rope_prep.cu",
          "replaces": "rag_arc_tpu/ops/rope_prep.py:52",
          "launches": rope_launches, **kernel_rope},

@@ -5,10 +5,11 @@ PyTorch, with each TPU kernel on the ported path rewritten by hand for
 Hopper (``csrc/``). The JAX package is the reference the port is tested
 against; the port itself imports neither JAX nor anything of the JAX
 package: it keeps its own copies of the host-only modules it needs (data
-model, tokenizer, packing, the embeddings interface, locks, tracing).
+model, tokenizer, packing, the embeddings interface, locks, tracing,
+rank fusion, the native loader and its C++ sources).
 
-Ported so far — the dense main path, the int8 index, the reranker and the
-kernel probe:
+Ported so far — the dense main path, the int8 index, the reranker, the
+kernel probe, and sparse and hybrid retrieval (BM25, RRF, multi-path):
 
   models/     TextEncoder / PackedTextEncoder, CausalLM,
               TorchEncoderEmbeddings, Qwen3LM / Qwen3Embeddings, the Flax
@@ -16,13 +17,21 @@ kernel probe:
   ops/        scoring, masked top-k, the sub-tile-max kernel wrappers and
               the producer switch (stream, stream_piped, scan), the
               two-level select + rescore, rope_prep, flash attention, the
-              fused MIPS top-k, the corpus-stream floor
-  index/      DeviceFlatIndex (f32/bf16/int8), Docstore, TorchVectorStore,
-              snapshots
-  retrieval/  BaseRetriever, VectorStoreRetriever
+              fused MIPS top-k, the corpus-stream floor, the BM25 device
+              programs (doc-major scan, hybrid head matmul + tail slabs,
+              tail-only sort/segment-sum) and RRF over positions
+  index/      DeviceFlatIndex (f32/bf16/int8), Docstore, TorchVectorStore
+              (multi_query_search included), snapshots, DeviceBM25Index
+              (host / device / hybrid backends, the per-query router and
+              the device-query coalescer)
+  retrieval/  BaseRetriever, VectorStoreRetriever, BM25Retriever,
+              MultiPathRetriever
   rerank/     RerankerBase, CrossEncoderReranker
-  tools/      kernel_probe (python -m rag_arc_tpu_torch.tools.kernel_probe)
-  utils/      Document, RWLock, stage tracing
+  native/     the host C++ BM25 scorer and tokenizer, built with g++ on
+              first use
+  tools/      kernel_probe (python -m rag_arc_tpu_torch.tools.kernel_probe),
+              bm25_synth (zipf CSR corpora and query profiles)
+  utils/      Document, RWLock, stage tracing, TransferPool, rank fusion
 
 Every allocating constructor takes an explicit ``device``.
 """

@@ -1,1 +1,1 @@
-"""Vector indexes and stores."""
+"""Vector indexes and stores, and the BM25 index."""

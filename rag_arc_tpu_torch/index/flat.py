@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from rag_arc_tpu_torch.utils.tracing import stage
+from rag_arc_tpu_torch.utils.transfers import current_pool
 from rag_arc_tpu_torch.ops.scoring import NEG_INF, dot_f32
 from rag_arc_tpu_torch.ops.topk import masked_topk, stable_topk
 from rag_arc_tpu_torch.ops.two_level import (
@@ -83,6 +84,24 @@ def fetch_pair(
         [scores.float(), positions.to(torch.int32).view(torch.float32)], dim=1
     ).cpu().numpy()
     return packed[:, :k], packed[:, k:].view(np.int32).astype(np.int64)
+
+
+def pair_readback(
+    scores: torch.Tensor, positions: torch.Tensor
+) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
+    """A fetch for a dispatched (scores, positions) pair: under an active
+    ``TransferPool`` the pair rides the stream's one pooled flush,
+    otherwise :func:`fetch_pair` reads it back in one transfer."""
+    pool = current_pool()
+    if pool is None:
+        return lambda: fetch_pair(scores, positions)
+    handle = pool.register((scores, positions))
+
+    def fetch() -> Tuple[np.ndarray, np.ndarray]:
+        s, p = pool.result(handle)
+        return s.astype(np.float32, copy=False), p.astype(np.int64)
+
+    return fetch
 
 
 def normalize_raw(
@@ -427,9 +446,10 @@ class DeviceFlatIndex:
         k_eff = min(k, self.capacity)
         b = queries.shape[0]
         s_dev, p_dev = self.search_device(torch.from_numpy(queries).to(self.device), k_eff)
+        readback = pair_readback(s_dev, p_dev)
 
         def fetch() -> Tuple[np.ndarray, np.ndarray]:
-            return normalize_raw(*fetch_pair(s_dev, p_dev), b, k, k_eff)
+            return normalize_raw(*readback(), b, k, k_eff)
 
         return fetch
 

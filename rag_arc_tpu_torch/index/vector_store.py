@@ -30,7 +30,7 @@ from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.utils.locks import RWLock
 from rag_arc_tpu_torch.utils.tracing import get_tracer, stage  # noqa: F401 (re-exported: the store's spans)
 from rag_arc_tpu_torch.index.docstore import Docstore
-from rag_arc_tpu_torch.index.flat import DeviceFlatIndex, fetch_pair, normalize_raw
+from rag_arc_tpu_torch.index.flat import DeviceFlatIndex, normalize_raw, pair_readback
 
 logger = logging.getLogger(__name__)
 
@@ -481,19 +481,49 @@ class TorchVectorStore(VectorStore):
             mask_dev = torch.from_numpy(mask).to(self.device)
             q_dev = encode_device(ids_dev, mask_dev)
             s_dev, p_dev = self.index.search_device(q_dev, k_eff)
+        # under an active TransferPool the pair rides the stream's one flush
+        readback = pair_readback(s_dev, p_dev)
 
         def fetch_chained() -> Tuple[np.ndarray, np.ndarray]:
             with stage("store.fetch"):
-                s_host, p_host = fetch_pair(s_dev, p_dev)
+                s_host, p_host = readback()
             return normalize_raw(s_host, p_host, b, k, k_eff)
 
         return fetch_chained
 
-    def multi_query_search(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "multi_query_search needs the RRF fusion kernel "
-            "(ROADMAP Queue 1 #10)"
-        )
+    def multi_query_search(
+        self,
+        variants_per_query: Sequence[Sequence[str]],
+        k: int = 10,
+        k_per_variant: int = 20,
+        rrf_k: int = 60,
+    ) -> List[List[Tuple[Document, float]]]:
+        """Fused multi-query fan-out: every variant of every query answers
+        in ONE batched search, and the per-variant rankings fuse with RRF
+        over positions (``ops/fusion_kernel.py``); candidates resolve to
+        Documents only after fusion. The positions are on the host after
+        the search's one readback, so the fusion runs there, in torch."""
+        from rag_arc_tpu_torch.ops.fusion_kernel import rrf_fuse_positions
+
+        if self.index is None or self.index.n_active == 0:
+            return [[] for _ in variants_per_query]
+        flat_queries = [v for vs in variants_per_query for v in vs]
+        if not flat_queries:
+            return [[] for _ in variants_per_query]
+        with self._rw.read():
+            # resolution must stay under the read lock: a concurrent
+            # delete can cross compact_threshold and remap positions
+            _, positions = self._dispatch_search_raw(flat_queries, k_per_variant)()
+            b = len(variants_per_query)
+            p_max = max(len(vs) for vs in variants_per_query)
+            grouped = np.full((b, p_max, k_per_variant), -1, dtype=np.int32)
+            row = 0
+            for qi, vs in enumerate(variants_per_query):
+                for pi in range(len(vs)):
+                    grouped[qi, pi] = positions[row]
+                    row += 1
+            scores, fused = rrf_fuse_positions(torch.from_numpy(grouped), k_out=k, rrf_k=rrf_k)
+            return [self._resolve(s, p) for s, p in zip(scores.numpy(), fused.numpy())]
 
     def max_marginal_relevance_search(
         self,

@@ -1,2 +1,3 @@
 """Device ops: scoring, top-k, the sub-tile-max producers, the two-level
-search, rope_prep, flash attention, the fused top-k and the corpus stream."""
+search, rope_prep, flash attention, the fused top-k, the corpus stream,
+the BM25 programs and RRF over positions."""

@@ -1,1 +1,2 @@
-"""Host-side utilities: the data model, locks and stage tracing."""
+"""Host-side utilities: the data model, locks, stage tracing, pooled
+readbacks and rank fusion."""

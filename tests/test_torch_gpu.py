@@ -973,3 +973,134 @@ def test_corpus_stream_equals_plain(cuda, dtype, n):
     torch.cuda.synchronize()
     assert cst.launches == before + 1
     assert torch.equal(got, cst.corpus_stream_plain(x))
+
+
+# -- sparse and hybrid retrieval (BM25, the transfer pool) -----------------------
+
+
+def _bm25_slab(b, n, seed):
+    """BM25-like scores: a few distinct values (ties past the k-th slot),
+    -inf columns, an all -inf row, and zeros."""
+    rng = np.random.default_rng(seed)
+    s = rng.choice(np.array([0.0, 0.5, 1.25, 3.0, 7.5], np.float32), (b, n))
+    s[rng.random((b, n)) < 0.2] = -np.inf
+    s[-1] = -np.inf
+    s[0, :3] = -np.inf
+    return torch.from_numpy(s.astype(np.float32))
+
+
+@pytest.mark.parametrize("b,n,k", [(8, 4096, 10), (5, 2048, 300), (3, 1000, 7),
+                                   (64, 2_000_896, 10), (4, 1024, 1024)])
+def test_bm25_select_topk_kernel_equals_plain(cuda, b, n, k):
+    """select_topk on a CUDA tensor (the select kernel: over group maxima
+    where a group width divides N, else over the raw scores) against the
+    plain tournament on the CPU, -inf and ties included: values equal, ids
+    equal once -inf slots map to -1 (the kernel path returns -1 there)."""
+    from rag_arc_tpu_torch.ops import bm25 as ob
+
+    s = _bm25_slab(b, n, seed=n + k)
+    before = ss.launches
+    gv, gp = ob.select_topk(s.to(cuda), k)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    wv, wp = ob.select_topk(s, k)
+    assert torch.equal(gv.cpu(), wv)
+    assert torch.equal(gp.cpu(), torch.where(torch.isneginf(wv), -1, wp))
+
+
+def test_bm25_head_is_full_f32_with_tf32_on(cuda):
+    """The head matmul ignores a global TF32 setting, and leaves it as it
+    found it. Weights 1 + r·2^-12 (r < 8) are exact in f32 and round to 1
+    in TF32's 10-bit mantissa; every partial sum of their products with
+    counts 0..2 over 256 terms is exact in f32, so the full-f32 product is
+    exact and a TF32 one is off by at least 2^-12 wherever r·q > 0."""
+    from rag_arc_tpu_torch.ops import bm25 as ob
+
+    rng = np.random.default_rng(0)
+    w = (1.0 + rng.integers(1, 8, (256, 65536)) * 2.0**-12).astype(np.float32)
+    q = rng.integers(0, 3, (64, 256)).astype(np.float32)
+    want = torch.from_numpy((q.astype(np.float64) @ w.astype(np.float64)).astype(np.float32))
+    qd, wd = torch.from_numpy(q).to(cuda), torch.from_numpy(w).to(cuda)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ob.head_scores(qd, wd)
+        assert torch.backends.cuda.matmul.allow_tf32
+        tf32 = qd @ wd
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(tf32.cpu(), want)  # the flag was on: TF32 rounds
+
+
+def test_transfer_pool_pinned_flush_equals_cpu(cuda):
+    from rag_arc_tpu_torch.utils import transfers
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    trees = [(torch.randn((33, 7), generator=gen, device=cuda),
+              torch.randint(-5, 5, (33, 7), generator=gen, device=cuda)),
+             {"a": torch.randn(1000, generator=gen, device=cuda).to(torch.float16),
+              "b": torch.arange(5, device=cuda, dtype=torch.int32)[1:]},
+             torch.rand((4, 4), generator=gen, device=cuda) > 0.5]
+    want = [(t[0].cpu().numpy(), t[1].cpu().numpy()) if isinstance(t, tuple)
+            else {k: v.cpu() for k, v in t.items()} if isinstance(t, dict)
+            else t.cpu().numpy() for t in trees]
+    pool = transfers.TransferPool()
+    handles = [pool.register(t) for t in trees]
+    got = [pool.result(h) for h in handles]
+    assert pool.flushes == 1
+    np.testing.assert_array_equal(got[0][0], want[0][0])
+    np.testing.assert_array_equal(got[0][1], want[0][1])
+    np.testing.assert_array_equal(got[1]["a"], want[1]["a"].numpy())
+    np.testing.assert_array_equal(got[1]["b"], want[1]["b"].numpy())
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.fixture(scope="module")
+def bm25_csr():
+    from rag_arc_tpu_torch.tools.bm25_synth import synth_csr
+
+    return synth_csr(np.random.default_rng(0), 20_000, vocab=5_000, mean_len=40)
+
+
+def test_bm25_every_backend_equals_host_scorer(cuda, bm25_csr):
+    """On a small corpus: the doc-major backend, the hybrid backend forced
+    to the device (flat and tail-only programs) and routed, each against
+    the host C++ scorer; the select kernel launches on the device paths."""
+    from rag_arc_tpu_torch.index.bm25 import DeviceBM25Index
+    from rag_arc_tpu_torch.tools.bm25_synth import bm25_queries, csr_texts, mixed_queries
+
+    host = DeviceBM25Index(backend="host", device=cuda)
+    host.build_from_csr(*bm25_csr)
+    rng = np.random.default_rng(1)
+    head, sel = bm25_queries(rng, 32, vocab=5_000)
+    sel = [[f"w{t}" for t in rng.integers(500, 5_000, size=6)] for _ in range(32)]
+    mixed = mixed_queries(head, sel)
+
+    def same(index, queries):
+        (gs, gp), (ws, wp) = index.search(queries, 10), host.search(queries, 10)
+        np.testing.assert_allclose(gs, ws, rtol=1e-4, atol=1e-5)
+        for i in range(len(queries)):
+            assert set(gp[i].tolist()) == set(wp[i].tolist()) or np.allclose(
+                np.sort(gs[i]), np.sort(ws[i]), rtol=1e-4)
+
+    forced = DeviceBM25Index(backend="hybrid", host_budget=0, device=cuda)
+    forced.build_from_csr(*bm25_csr)
+    assert forced._hybrid_operands(forced._count_terms(sel))[0]
+    assert not forced._hybrid_operands(forced._count_terms(head))[0]
+    routed = DeviceBM25Index(backend="hybrid", host_budget=20_000, device=cuda)
+    routed.build_from_csr(*bm25_csr)
+    doc_major = DeviceBM25Index(backend="device", device=cuda)
+    doc_major.build_from_texts_native(csr_texts(*bm25_csr[:3]))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the head stays full f32
+    try:
+        for index in (forced, routed, doc_major):
+            for queries in (head, sel, mixed):
+                before = ss.launches
+                same(index, queries)
+                if index is not routed:
+                    assert ss.launches > before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert routed.search_dispatch(mixed, 10).result()[0].shape == (32, 10)
