@@ -112,10 +112,41 @@ Phases, each printing its own lines and times:
      .rerank_batch(k=10)``, checked (candidates, sorted, scores in [0, 1],
      order against the einsum path) and counted (both kernels launch once
      per layer); then one ``rerank_batch`` through the default
-     ``CrossEncoderReranker()`` (768 x 12 causal).
+     ``CrossEncoderReranker()`` (768 x 12 causal);
+  8. serving and ingest, every kernel count set to 0 just before and read
+     just after (the ``launches_serving`` of the kernels line):
+     - serve_ingest: 4,096 generated files (txt, md, docx, xlsx, pptx, and
+       html where bs4 is installed; ``tools/doc_synth.py``) through
+       ``tools/ingest.py``'s ``main()`` with the 768 x 12 encoder on the
+       card, the BM25 twin and bf16, once with the JSON docstore and once
+       with ``--blob-docstore``; every file parsed; each snapshot served
+       through the app's ``--store`` path (``make_server``, port 0): every
+       endpoint answers 200, 512 chunk texts find their own chunk in the
+       top 10 (>= 0.99), ``/batch`` ids equal ``query_batch``'s,
+       ``response=ids`` carries the ``full`` ids, ``/add`` then ``/delete``
+       changes the answers, and the blob snapshot answers as the JSON one;
+     - serve_2m: ``tools/serving_bench.py``'s configuration (2M x 768 bf16,
+       the index phase's rows, documents in a ``BlobDocstore``, queries
+       encoded on the card and chained into the search,
+       ``RagPipeline(batch_max=512, batch_wait_ms=3)``), 32 clients x 10
+       requests (the tool sends 40) x 64 queries on keep-alive
+       connections, three ``response=ids`` passes and one ``full``: QPS,
+       request p50/p95, the coalesced batch sizes, single-query latency
+       (60 solo requests, the first 10 dropped), one coalesced B=512
+       batch's device split; served ids equal the direct search's, the
+       producer and select kernels launched by the served traffic, MMR
+       ids equal ``mmr_select`` over the store's own top 20;
+     - serve_rerank: serve_2m's retriever with the Qwen3 cross-encoder
+       (recall 50, top 10) behind the app, 4 requests of 8 queries: each
+       answer a sorted subset of the retrieved 50 in ``rerank_batch``'s
+       order, ``rope_prep`` and ``flash_attention`` 28 launches a forward;
+     - serve_config: a ``PipelineConfig`` document (MULTIPATH over
+       ``TORCH_EMBEDDINGS`` 768 x 12 and BM25, REWRITE with FAKE_LLM)
+       through ``Register``, 64 queries over HTTP.
 
-Every check that fails ends the run with a non-zero exit. Without a CUDA
-card it exits non-zero at once. The second-to-last line is a JSON object
+Every check that fails ends the run with a non-zero exit; a serving phase
+fails on any response other than 200 and on any client error. Without a
+CUDA card it exits non-zero at once. The second-to-last line is a JSON object
 describing each kernel; the last line is the run's JSON status.
 """
 
@@ -253,6 +284,25 @@ P_BOUND = 0.05
 F32_B, F32_L, F32_BOUND = 4, 256, 1e-4  # f32, full width, 2 layers
 RERANK_QUERIES = 8
 RERANK_CANDIDATES = 50
+# serving and ingest: the two-command flow (tools/ingest.py, then the app's
+# --store) on a generated multi-format corpus, and tools/serving_bench.py's
+# configuration (2M x 768 bf16 in the blob docstore, the 768 x 12 encoder
+# on the card, batch_max 512, 32 clients x 64-query requests, k 10)
+INGEST_FILES = 4096
+INGEST_QUERIES = 512
+SERVE_BATCH_MAX = 512
+SERVE_WAIT_MS = 3.0
+SERVE_CLIENTS = 32
+SERVE_REQUESTS = 10  # tools/serving_bench.py sends 40: cut to keep the run short
+SERVE_QPR = 64
+SERVE_IDS_PASSES = 3
+SERVE_SOLO = 60
+SERVE_SOLO_DROP = 10
+SERVE_MMR_QUERIES = 4
+SERVE_RERANK_REQUESTS = 4
+SERVE_RERANK_QPR = 8
+SERVE_CONFIG_DOCS = 4096
+SERVE_CONFIG_QUERIES = 64
 
 CARD = ""
 ROOT = Path(__file__).resolve().parent
@@ -1186,6 +1236,20 @@ class Counter:
 
     def read(self) -> int:
         return getattr(self.module, self.name)
+
+
+@contextlib.contextmanager
+def uncounted(*modules):
+    """Launches inside do not count: a serving phase's timing and reference
+    calls, made while no request is being served. Each module's counts are
+    put back as they were on the way out."""
+    names = ("launches", "launches_l2")
+    saved = [(m, n, getattr(m, n)) for m in modules for n in names if hasattr(m, n)]
+    try:
+        yield
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
 
 
 def phase_index(torch, sm, ss, dev, data):
@@ -2401,6 +2465,484 @@ def phase_rerank_e2e(torch, rp, fa, dev, store, texts, model, ref) -> tuple[int,
     return launches
 
 
+class _Http:
+    """One keep-alive connection to a served pipeline. Every response
+    other than 200 (and every client error) fails the run."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def raw(self, method: str, path: str, body: bytes | None = None) -> bytes:
+        self.conn.request(method, path, body, {"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        data = resp.read()
+        check(resp.status == 200, f"{method} {path} answered {resp.status}: {data[:300]!r}")
+        return data
+
+    def post(self, path: str, payload: dict):
+        return json.loads(self.raw("POST", path, json.dumps(payload).encode()))
+
+    def get(self, path: str):
+        return json.loads(self.raw("GET", path))
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+@contextlib.contextmanager
+def served(pipeline):
+    """The app's server (``make_server``, port 0) on a thread; stopped and
+    closed on the way out."""
+    import threading
+
+    from rag_arc_tpu_torch.serving.app import make_server
+
+    server = make_server(pipeline, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_port
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+
+
+def batch_ids(body: dict) -> list[list[str]]:
+    return [[d["id"] for d in r] for r in body["results"]]
+
+
+def serve_snapshot_checks(torch, snap: Path, dev, rows: list[dict]):
+    """Serve one ingest snapshot through the app's --store path and check
+    every endpoint; returns the /batch results (full) of the chunk texts.
+    A chunk is found by its (source, text): the two snapshots' ids differ."""
+    from rag_arc_tpu_torch.serving.app import _pipeline_from_store
+
+    t0 = time.perf_counter()
+    pipe = _pipeline_from_store(str(snap), None, K, device=dev)
+    pipe.warmup()
+    setup_s = time.perf_counter() - t0
+    texts = [r["content"] for r in rows]
+    with served(pipe) as port:
+        http = _Http(port)
+        health = http.get("/health")
+        check(health["status"] == "ok", f"/health: {health}")
+        one = http.post("/query", {"query": texts[0], "k": K})["documents"]
+        check(len(one) == K and texts[0] in [d["content"] for d in one],
+              "/query lost its source")
+        t0 = time.perf_counter()
+        full = http.post("/batch", {"queries": texts, "k": K})
+        batch_s = time.perf_counter() - t0
+        slim = http.post("/batch", {"queries": texts, "k": K, "response": "ids"})
+        got = batch_ids(full)
+        check(batch_ids(slim) == got, "response=ids carries other ids than full")
+        check(all(set(d) == {"id", "score"} for r in slim["results"] for d in r),
+              "response=ids carries more than id and score")
+        # the batcher cuts the request into batch_max slices: hold each
+        # slice to query_batch over the same slice (a batch of another size
+        # rounds the encoder's bf16 differently)
+        cap = pipe.batcher.max_batch
+        direct = [[d.id for d in r] for i in range(0, len(texts), cap)
+                  for r in pipe.query_batch(texts[i : i + cap])]
+        check(direct == got, "/batch ids differ from pipeline.query_batch's")
+        found = sum((r["metadata"]["source"], r["content"]) in
+                    {(d["metadata"]["source"], d["content"]) for d in hits}
+                    for r, hits in zip(rows, full["results"]))
+        probe = "serve ingest probe " + " ".join(f"zq{i}x" for i in range(12))
+        added = http.post("/add", {"texts": [probe], "metadatas": [{"source": "probe"}]})["ids"]
+        hit = http.post("/query", {"query": probe, "k": K})["documents"]
+        check(hit[0]["id"] == added[0], "an added document is not its own first answer")
+        check(http.post("/delete", {"ids": added}) == {"deleted": True}, "/delete failed")
+        gone = http.post("/query", {"query": probe, "k": K})["documents"]
+        check(added[0] not in [d["id"] for d in gone], "a deleted document still answers")
+        stats = http.get("/stats")
+        http.close()
+    report(f"{snap.name} snapshot served (--store, {type(pipe.retriever).__name__}, "
+           f"set-up {setup_s:.2f} s incl. warm-up): /health /stats /query /batch /add "
+           f"/delete all 200; {len(texts)} chunk texts in one /batch {batch_s * 1e3:.1f} ms "
+           f"(host clock), own chunk in top {K} {found}/{len(texts)} = "
+           f"{found / len(texts):.4f}; /batch ids = query_batch ids; ids = full; add then "
+           f"delete seen; batcher {stats['batcher']}")
+    check(found >= 0.99 * len(texts), f"only {found}/{len(texts)} chunks found themselves")
+    return full["results"]
+
+
+def phase_serve_ingest(torch, dev, tmp: Path) -> None:
+    """tools/ingest.py's main() (the full 768 x 12 encoder on the card, the
+    BM25 twin, bf16), once with the JSON docstore and once with the blob
+    docstore, then each snapshot through the app's --store path."""
+    import ast
+    import importlib.util
+    import io
+
+    from rag_arc_tpu_torch.tools import ingest
+    from rag_arc_tpu_torch.tools.doc_synth import FORMATS, write_corpus
+
+    has_bs4 = importlib.util.find_spec("bs4") is not None
+    formats = FORMATS if has_bs4 else tuple(f for f in FORMATS if f != "html")
+    phase(f"serve_ingest: {INGEST_FILES} files ({', '.join(formats)}) -> tools/ingest.py "
+          f"main() --embedder torch --dim {DIM} --bm25 --dtype bfloat16 (JSON, then blob "
+          f"docstore) -> app --store")
+    t0 = time.perf_counter()
+    written = write_corpus(tmp / "docs", INGEST_FILES, seed=SEED, formats=formats)
+    report(f"wrote {len(written)} files in {time.perf_counter() - t0:.2f} s; html "
+           + ("written" if has_bs4 else "not written: this machine has no bs4, which "
+              "HtmlParser imports when it parses (the CPU tests hold html parsing)"))
+    outs = {}
+    for name, extra in (("json", []), ("blob", ["--blob-docstore"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ingest.main([str(tmp / "docs"), "-o", str(tmp / name), "--embedder", "torch",
+                              "--dim", str(DIM), "--bm25", "--dtype", "bfloat16", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"ingest main() returned {rc}")
+        stats = dict(line.split(": ", 1) for line in buf.getvalue().splitlines() if ": " in line)
+        files, chunks = int(stats["files"]), int(stats["chunks"])
+        split = ast.literal_eval(stats["stages_s"])
+        report(f"ingest ({name} docstore): {files} files -> {chunks} chunks in {wall:.2f} s = "
+               f"{files / wall:.1f} files/s, {chunks / wall:.1f} chunks/s (host clock); split s: "
+               + ", ".join(f"{k} {v}" for k, v in split.items()))
+        check(files == len(written), f"parse_tree parsed {files} of {len(written)} files")
+        outs[name] = chunks
+    check(outs["json"] == outs["blob"], f"the two ingests chunked differently: {outs}")
+    rows = json.loads((tmp / "json" / "dense" / "docstore.json").read_text(encoding="utf-8"))
+    seen = {Path(r["metadata"]["source"]).suffix.lstrip(".") for r in rows}
+    check(seen == set(formats), f"chunks come from formats {sorted(seen)}, not {formats}")
+    check(len({r["content"] for r in rows}) == len(rows), "two chunks have the same text")
+    pick = np.random.default_rng(SEED + 7).choice(len(rows), INGEST_QUERIES, replace=False)
+    rows = [rows[i] for i in pick]
+    res_json = serve_snapshot_checks(torch, tmp / "json", dev, rows)
+    res_blob = serve_snapshot_checks(torch, tmp / "blob", dev, rows)
+
+    def keyed(results):
+        return [[(d["metadata"]["source"], d["content"]) for d in r] for r in results]
+
+    same = keyed(res_blob) == keyed(res_json)
+    report(f"the blob snapshot serves the JSON snapshot's documents in the same order: {same}")
+    check(same, "the blob snapshot serves other answers than the JSON one")
+
+
+def load_pass(port: int, bodies: list[list[bytes]]) -> dict:
+    """SERVE_CLIENTS threads, each on its own keep-alive connection, send
+    their pre-serialized /batch bodies in turn; every 8th answer parsed."""
+    import http.client
+    import threading
+
+    errors, latencies = [], []
+
+    def client(mine: list[bytes]) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            for r, body in enumerate(mine):
+                t1 = time.perf_counter()
+                conn.request("POST", "/batch", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                if resp.status != 200:
+                    errors.append(f"status {resp.status}: {data[:200]!r}")
+                    return
+                if r % 8 == 0 and len(json.loads(data)["results"]) != SERVE_QPR:
+                    errors.append("short /batch answer")
+                    return
+                latencies.append(time.perf_counter() - t1)
+        except Exception as exc:  # noqa: BLE001 — the run fails on any client error
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(b,)) for b in bodies]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"{len(errors)} client errors, first: {errors[:1]}")
+    lat = np.asarray(latencies) * 1e3
+    n_q = sum(len(b) for b in bodies) * SERVE_QPR
+    return {"qps": n_q / wall, "wall_s": wall, "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)), "requests": len(latencies)}
+
+
+def coalesced_split(torch, sm, ss, store, texts: list[str]) -> None:
+    """Device time of one coalesced B=512 batch, layer by layer (CUDA
+    events), beside the host's tokenize, resolve and JSON times."""
+    from rag_arc_tpu_torch.index.flat import fetch_pair
+    from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore
+    from rag_arc_tpu_torch.serving.app import _doc_ids_json, _doc_json
+
+    emb, index = store.embedding, store.index
+    t0 = time.perf_counter()
+    ids, mask = emb.tokenizer.batch_encode([t.replace("\n", " ") for t in texts])
+    length = emb._bucket_len(ids.shape[1])
+    ids = np.pad(ids, ((0, 0), (0, length - ids.shape[1])))
+    mask = np.pad(mask, ((0, 0), (0, length - mask.shape[1])))
+    tok_ms = (time.perf_counter() - t0) * 1e3
+    ids_d, mask_d = torch.from_numpy(ids).to(store.device), torch.from_numpy(mask).to(store.device)
+    q = emb.encode_device(ids_d, mask_d)
+    qc = prepare_queries(q, index.dtype, "cosine")
+    sub = sm.subtile_max(qc, index.emb, index.valid, G)
+    enc = cuda_ms(lambda: emb.encode_device(ids_d, mask_d), 5)
+    search = cuda_ms(lambda: index.search_device(q, K), 5)
+    prod = cuda_ms(lambda: sm.subtile_max(qc, index.emb, index.valid, G), 5)
+    sel = cuda_ms(lambda: ss.iterative_argmax_resid(sub, K), 5)
+    sel_res = cuda_ms(lambda: select_rescore(qc, index.emb, index.valid, sub, K, G), 5)
+    # the largest batch the store searches on its direct path (a score
+    # matrix within SCORE_BYTES_BUDGET): most coalesced batches under load
+    b_direct = 1 << (index.SCORE_BYTES_BUDGET // (4 * index.capacity)).bit_length() - 1
+    direct = cuda_ms(lambda: index.search_device(q[:b_direct], K), 5)
+    scores, positions = fetch_pair(*index.search_device(q, K))
+    t0 = time.perf_counter()
+    hits = [store._resolve(s, p) for s, p in zip(scores, positions)]
+    resolve_ms = (time.perf_counter() - t0) * 1e3
+    docs = [[d for d, _ in h] for h in hits]
+    t0 = time.perf_counter()
+    json.dumps({"results": [[_doc_ids_json(d) for d in r] for r in docs]})
+    ids_json_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    json.dumps({"results": [[_doc_json(d) for d in r] for r in docs]}, ensure_ascii=False)
+    full_json_ms = (time.perf_counter() - t0) * 1e3
+    report(f"one coalesced batch B={len(texts)} L={length}, device (CUDA events, mean of 5): "
+           f"encode {enc:.3f} ms, search {search:.3f} ms = producer {prod:.3f} + select "
+           f"{sel:.3f} + rescore {sel_res - sel:.3f} (select + rescore {sel_res:.3f} less the "
+           f"select) + query prep; the direct path at B={b_direct} {direct:.3f} ms; host: "
+           f"tokenize {tok_ms:.2f} ms, resolve {resolve_ms:.2f} ms, JSON ids {ids_json_ms:.2f} "
+           f"ms / full {full_json_ms:.2f} ms")
+
+
+def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
+    """tools/serving_bench.py's configuration through the app. Returns the
+    store (its documents in a BlobDocstore)."""
+    from rag_arc_tpu_torch.index.vector_store import Document, TorchVectorStore
+    from rag_arc_tpu_torch.ops.mmr import mmr_select
+    from rag_arc_tpu_torch.serving.pipeline import RagPipeline
+
+    phase(f"serve_2m: {CORPUS_N} x {DIM} bf16 (documents in a BlobDocstore), the "
+          f"{emb.cfg.dim}x{emb.cfg.depth} encoder on the card chained into the search, "
+          f"RagPipeline(batch_max={SERVE_BATCH_MAX}, batch_wait_ms={SERVE_WAIT_MS}) behind "
+          f"make_server; {SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests x {SERVE_QPR} "
+          f"queries, k={K}")
+    t0 = time.perf_counter()
+    store = TorchVectorStore(emb, dim=DIM, metric="cosine", capacity=CORPUS_N,
+                             dtype=torch.bfloat16, docstore_path=str(tmp / "serve_2m_docs"),
+                             device=dev)
+    corpus, step = data["corpus"], 1 << 17
+    for start in range(0, CORPUS_N, step):  # injected as tools/serving_bench.py does
+        positions = store.index.add(corpus[start : start + step])
+        store.docstore.add([Document(content=f"doc {int(p)}", id=f"d{int(p)}")
+                            for p in positions], positions.tolist())
+    torch.cuda.synchronize()
+    report(f"corpus injected in {time.perf_counter() - t0:.1f} s (the index phase's rows; "
+           f"{len(store)} documents in the blob docstore)")
+    check(len(store) == CORPUS_N, f"the store holds {len(store)} documents")
+    pipe = RagPipeline(store.as_retriever(search_kwargs={"k": K}), top_k=K,
+                       batch_max=SERVE_BATCH_MAX, batch_wait_ms=SERVE_WAIT_MS)
+    t0 = time.perf_counter()
+    pipe.warmup(batch_sizes=[1 << i for i in range(SERVE_BATCH_MAX.bit_length())])
+    report(f"warm-up (every pow2 batch up to {SERVE_BATCH_MAX}) {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 8)
+
+    def request(cid: int, r: int) -> list[str]:
+        return [f"client {cid} request {r} query {j} term {rng.integers(1_000_000)}"
+                for j in range(SERVE_QPR)]
+
+    queries = [[request(c, r) for r in range(SERVE_REQUESTS)] for c in range(SERVE_CLIENTS)]
+    sizes: list[int] = []  # the size of every batch the batcher hands the pipeline
+    answer = pipe.batcher.batch_fn
+
+    def recorded(batch, **kwargs):
+        sizes.append(len(batch))
+        return answer(batch, **kwargs)
+
+    pipe.batcher.batch_fn = recorded
+    direct_max = store.index.SCORE_BYTES_BUDGET // (4 * store.index.capacity)
+    bodies = {mode: [[json.dumps({"queries": q, "k": K, "response": mode}).encode()
+                      for q in per] for per in queries] for mode in ("ids", "full")}
+    with served(pipe) as port:
+        http = _Http(port)
+        solo = []
+        for i in range(SERVE_SOLO):
+            t1 = time.perf_counter()
+            out = http.post("/batch", {"queries": [f"solo latency probe {i}"], "k": K})
+            solo.append(time.perf_counter() - t1)
+            check(len(out["results"]) == 1 and len(out["results"][0]) == K, "short solo answer")
+        sl = np.asarray(solo[SERVE_SOLO_DROP:]) * 1e3
+        report(f"single-query latency over HTTP ({SERVE_SOLO} solo requests, the first "
+               f"{SERVE_SOLO_DROP} dropped): p50 {np.percentile(sl, 50):.2f} ms, p95 "
+               f"{np.percentile(sl, 95):.2f} ms, min {sl.min():.2f} ms (host clock)")
+        sample = [q for per in queries[:8] for q in per[0]]
+        served_ids = batch_ids(http.post("/batch", {"queries": sample, "k": K}))
+        with uncounted(sm, ss):
+            direct = [[d.id for d, _ in h]
+                      for h in store.batch_similarity_search_with_score(sample, k=K)]
+        report(f"one /batch of {len(sample)} texts: ids equal to "
+               f"batch_similarity_search_with_score's: {served_ids == direct}")
+        check(served_ids == direct, "served ids differ from the direct search's")
+        before_load = (sm.launches, ss.launches)
+        qps = {}
+        for mode in ["ids"] * SERVE_IDS_PASSES + ["full"]:
+            before = dict(pipe.batcher.stats)
+            pipe.batcher.stats["max_batch_seen"] = 0
+            sizes.clear()
+            out = load_pass(port, bodies[mode])
+            after = pipe.batcher.stats
+            qps.setdefault(mode, []).append(out["qps"])
+            # the store pads a batch to a power of two before it searches
+            two_level = sum((1 << (b - 1).bit_length()) > direct_max for b in sizes)
+            report(f"response={mode}: {out['qps']:.1f} QPS ({out['requests']} requests of "
+                   f"{SERVE_QPR} in {out['wall_s']:.2f} s, host clock), request p50 "
+                   f"{out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms; batcher "
+                   f"{after['batches'] - before['batches']} batches, max_batch_seen "
+                   f"{after['max_batch_seen']}, sizes p50 {np.percentile(sizes, 50):.0f} / "
+                   f"mean {np.mean(sizes):.1f}; {two_level} of {len(sizes)} batches padded "
+                   f"past B={direct_max} (the two-level kernel path), the rest on the direct "
+                   f"path")
+        pipe.batcher.batch_fn = answer
+        # lower bounds: threads may lose an increment
+        launches = (sm.launches - before_load[0], ss.launches - before_load[1])
+        spread = (max(qps["ids"]) - min(qps["ids"])) / min(qps["ids"])
+        report(f"the {SERVE_IDS_PASSES} ids passes within {100 * spread:.1f}% of the lowest "
+               f"({'within' if spread <= 0.10 else 'NOT within'} 10%); kernel launches over "
+               f"the load: subtile_max {launches[0]}, subtile_select {launches[1]}")
+        check(min(launches) > 0, "the served traffic never reached the kernels")
+        stats = http.get("/stats")
+        http.close()
+    report(f"pipeline stats: {stats['queries']} queries, {stats['mean_ms_per_query']:.3f} ms "
+           f"mean per query (host); stage timings " + ", ".join(
+               f"{k} {v['mean_ms']:.2f} ms" for k, v in sorted(stats["stage_timings"].items())
+               if k.startswith(("pipeline", "store"))))
+    with uncounted(sm, ss):
+        coalesced_split(torch, sm, ss, store, [q for per in queries[:8] for q in per[1]])
+
+    mmr = store.as_retriever(search_type="mmr", search_kwargs={"k": 4, "fetch_k": 20})
+    texts = [q for q in queries[0][2][:SERVE_MMR_QUERIES]]
+    same = 0
+    for text in texts:
+        got = [d.id for d in mmr.invoke(text)]
+        q = emb.encode([text])
+        _, pos = store.index.search(q, 20)
+        cand = pos[0][pos[0] >= 0]
+        want = [store.docstore.get_by_position(int(cand[i])).id
+                for i in mmr_select(q[0], store.index.take(cand), k=4)]
+        same += got == want
+    report(f"MMR (k 4, fetch_k 20) on {len(texts)} texts: ids equal to mmr_select over the "
+           f"store's own top 20 and its take: {same}/{len(texts)}")
+    check(same == len(texts), "MMR ids differ from mmr_select's")
+    return store
+
+
+def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
+    from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker, HashTokenizer
+    from rag_arc_tpu_torch.serving.pipeline import RagPipeline
+
+    phase(f"serve_rerank: RagPipeline(serve_2m's retriever, the Qwen3 "
+          f"{model.cfg.num_hidden_layers}x{model.cfg.hidden_size} cross-encoder, recall_k "
+          f"{RERANK_CANDIDATES}, top_k {K}) behind make_server; {SERVE_RERANK_REQUESTS} "
+          f"/batch requests of {SERVE_RERANK_QPR} queries")
+    layers = model.cfg.num_hidden_layers
+    rr = CrossEncoderReranker.from_causal_lm(
+        model, None, HashTokenizer(vocab_size=model.cfg.vocab_size), device=dev)
+    retriever = store.as_retriever(search_kwargs={"k": K})
+    pipe = RagPipeline(retriever, reranker=rr, recall_k=RERANK_CANDIDATES, top_k=K,
+                       batch_max=SERVE_BATCH_MAX, batch_wait_ms=SERVE_WAIT_MS)
+    pipe.warmup(batch_sizes=(SERVE_RERANK_QPR,))
+    rng = np.random.default_rng(SEED + 9)
+    times, forwards = [], []
+    with served(pipe) as port:
+        http = _Http(port)
+        for r in range(SERVE_RERANK_REQUESTS):
+            queries = [f"rerank request {r} query {j} doc {rng.integers(CORPUS_N)}"
+                       for j in range(SERVE_RERANK_QPR)]
+            before = (rp.launches, fa.launches)
+            t0 = time.perf_counter()
+            out = http.post("/batch", {"queries": queries, "k": K})["results"]
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches = (rp.launches - before[0], fa.launches - before[1])
+            check(launches[0] == launches[1] and launches[0] > 0 and launches[0] % layers == 0,
+                  f"request {r}: rope_prep / flash_attention launched {launches} times, "
+                  f"not {layers} a forward")
+            forwards.append(launches[0] // layers)
+            with uncounted(rp, fa):
+                cands = retriever.invoke_batch(queries, k=RERANK_CANDIDATES)
+                want = rr.rerank_batch(queries, cands, k=K)
+            for got, c, w in zip(out, cands, want):
+                scores = [d["metadata"]["rerank_score"] for d in got]
+                check(len(got) == K, "a short reranked answer")
+                check({d["id"] for d in got} <= {d.id for d in c},
+                      "a reranked answer is not among the retrieved 50")
+                check(scores == sorted(scores, reverse=True), "answers not sorted by rerank_score")
+                check([d["id"] for d in got] == [d.id for d in w],
+                      "the served order differs from rerank_batch's on the same candidates")
+        http.close()
+    report(f"{SERVE_RERANK_REQUESTS} requests of {SERVE_RERANK_QPR} queries x "
+           f"{RERANK_CANDIDATES} candidates: " + ", ".join(f"{t:.1f}" for t in times)
+           + f" ms each (host clock; {np.mean(times[1:]):.1f} ms mean past the first); "
+           f"forwards per request {forwards}, rope_prep and flash_attention {layers} launches "
+           f"each a forward; every answer a sorted subset of the retrieved "
+           f"{RERANK_CANDIDATES} in rerank_batch's order")
+
+
+def phase_serve_config(torch, dev, tmp: Path, texts: list[str]) -> None:
+    """A PipelineConfig document shaped like examples/serve_pipeline.json
+    (TORCH_EMBEDDINGS at full width, a REWRITE with FAKE_LLM) through the
+    registry, served over HTTP."""
+    from rag_arc_tpu_torch.framework.registry import Register
+    from rag_arc_tpu_torch.index.vector_store import Document
+    from rag_arc_tpu_torch.serving.configs import PipelineConfig
+
+    doc = {
+        "type": "PIPELINE",
+        "retriever": {
+            "type": "MULTIPATH",
+            "retrievers": [
+                {"type": "DENSE", "embeddings": {"type": "TORCH_EMBEDDINGS"},
+                 "dtype": "bfloat16", "index_type": "flat", "k": 20},
+                {"type": "BM25", "k": 20},
+            ],
+            "top_k": K,
+            "top_k_per_retriever": 50,
+        },
+        "rewrite": {"type": "REWRITE", "llm": {"type": "FAKE_LLM"}},
+        "top_k": K,
+        "batch_max": 128,
+        "batch_wait_ms": SERVE_WAIT_MS,
+        "device": str(dev),
+    }
+    phase(f"serve_config: a PipelineConfig (MULTIPATH of DENSE over TORCH_EMBEDDINGS "
+          f"768x12 and BM25, REWRITE with FAKE_LLM) through Register; {SERVE_CONFIG_DOCS} "
+          f"documents, {SERVE_CONFIG_QUERIES} queries over HTTP")
+    path = tmp / "pipeline.json"
+    path.write_text(json.dumps(doc), encoding="utf-8")
+    t0 = time.perf_counter()
+    pipe = Register().register(path, "pipeline", PipelineConfig)
+    check(pipe is not None, "the registry did not build the pipeline")
+    docs = [Document(content=t, id=f"d{i}") for i, t in enumerate(texts[:SERVE_CONFIG_DOCS])]
+    pipe.retriever.add_documents(docs)
+    pipe.warmup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dense = pipe.retriever.retrievers[0].vectorstore
+    check(dense.device.type == dev.type and dense.embedding.device.type == dev.type,
+          f"the config's pipeline is not on {dev}")
+    queries = [d.content for d in docs[:SERVE_CONFIG_QUERIES]]
+    with served(pipe) as port:
+        http = _Http(port)
+        t0 = time.perf_counter()
+        got = batch_ids(http.post("/batch", {"queries": queries}))
+        ms = (time.perf_counter() - t0) * 1e3
+        http.close()
+    found = sum(f"d{i}" in ids for i, ids in enumerate(got))
+    report(f"built, filled and warmed in {build_s:.2f} s; {len(queries)} queries in one "
+           f"/batch {ms:.1f} ms (host clock); source in the fused top {K}: {found}/"
+           f"{len(queries)}; rewriter {type(pipe.rewriter.llm).__name__}")
+    check(found >= 0.99 * len(queries), f"only {found}/{len(queries)} sources found")
+    Register().clear()
+
+
 def main() -> int:
     import torch
 
@@ -2418,6 +2960,12 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import corpus_stream as cst
 
     dev = torch.device("cuda", 0)
+    counters = {"subtile_max": Counter(sm), "subtile_max_l2": Counter(sm, "launches_l2"),
+                "subtile_max_i8": Counter(smi8), "subtile_select": Counter(ss),
+                "rope_prep": Counter(rp), "flash_attention": Counter(fa),
+                "subtile_max_piped": Counter(smp), "fused_mips_topk": Counter(fm),
+                "corpus_stream": Counter(cst)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     t_all = time.perf_counter()
     try:
         phase_environment(torch)
@@ -2439,20 +2987,36 @@ def main() -> int:
         torch.cuda.empty_cache()
         l2_launches = phase_index_l2(torch, sm, ss, dev, data)
         phase_index_i8(torch, smi8, ss, dev, data)
-        del data
         e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, ss, dev)
         i8_launches = phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts)
         hybrid_launches = phase_hybrid_retriever(torch, sm, ss, dev, store)
         qwen3, qwen3_ref = phase_rerank_model(torch, rp, fa, dev)
         rope_launches, flash_launches = phase_rerank_e2e(
             torch, rp, fa, dev, store, texts, qwen3, qwen3_ref)
-        del store, qwen3, qwen3_ref
+        del store, qwen3_ref
+        torch.cuda.empty_cache()
+        # the serving path: every count set to 0 just before its four
+        # phases and read just after
+        for counter in counters.values():
+            counter.reset()
+        phase_serve_ingest(torch, dev, tmp)
+        serve_store = phase_serve_2m(torch, sm, ss, dev, data, emb, tmp)
+        del data
+        phase_serve_rerank(torch, rp, fa, dev, serve_store, qwen3)
+        phase_serve_config(torch, dev, tmp, texts)
+        serving = {name: counter.read() for name, counter in counters.items()}
+        report(f"kernel launches on the serving phases: {serving}")
+        for name in ("subtile_max", "subtile_select", "rope_prep", "flash_attention"):
+            check(serving[name] > 0, f"{name} never launched on the serving path")
+        del serve_store, qwen3, emb
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"== done in {time.perf_counter() - t_all:.1f} s", flush=True)
     src = "rag_arc_tpu_torch/csrc/"
-    print(json.dumps({"kernels": [
+    rows = [
         {"name": "subtile_max", "route": "cuda", "source": src + "subtile_max.cu",
          "replaces": "rag_arc_tpu/ops/two_level_stream.py:140",
          "also_replaces": "rag_arc_tpu/ops/two_level.py:89",
@@ -2485,7 +3049,10 @@ def main() -> int:
         {"name": "corpus_stream", "route": "cuda", "source": src + "corpus_stream.cu",
          "replaces": "tools/kernel_probe.py:194",
          "launches": probe_launches["corpus_stream"], **kernel_stream},
-    ]}))
+    ]
+    for row in rows:  # each kernel's launches on the four serving phases
+        row["launches_serving"] = serving[row["name"]]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

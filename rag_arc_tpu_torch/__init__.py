@@ -9,7 +9,8 @@ model, tokenizer, packing, the embeddings interface, locks, tracing,
 rank fusion, the native loader and its C++ sources).
 
 Ported so far — the dense main path, the int8 index, the reranker, the
-kernel probe, and sparse and hybrid retrieval (BM25, RRF, multi-path):
+kernel probe, sparse and hybrid retrieval (BM25, RRF, multi-path), MMR,
+and serving and ingest:
 
   models/     TextEncoder / PackedTextEncoder, CausalLM,
               TorchEncoderEmbeddings, Qwen3LM / Qwen3Embeddings, the Flax
@@ -19,18 +20,26 @@ kernel probe, and sparse and hybrid retrieval (BM25, RRF, multi-path):
               two-level select + rescore, rope_prep, flash attention, the
               fused MIPS top-k, the corpus-stream floor, the BM25 device
               programs (doc-major scan, hybrid head matmul + tail slabs,
-              tail-only sort/segment-sum) and RRF over positions
-  index/      DeviceFlatIndex (f32/bf16/int8), Docstore, TorchVectorStore
-              (multi_query_search included), snapshots, DeviceBM25Index
-              (host / device / hybrid backends, the per-query router and
-              the device-query coalescer)
+              tail-only sort/segment-sum), RRF over positions, MMR (host)
+  index/      DeviceFlatIndex (f32/bf16/int8), Docstore, BlobDocstore,
+              TorchVectorStore (multi_query_search and MMR included),
+              snapshots, DeviceBM25Index (host / device / hybrid backends,
+              the per-query router and the device-query coalescer)
   retrieval/  BaseRetriever, VectorStoreRetriever, BM25Retriever,
-              MultiPathRetriever
+              MultiPathRetriever, MultiQueryRewriter / RewriteRetriever
   rerank/     RerankerBase, CrossEncoderReranker
+  serving/    QueryBatcher, RagPipeline, the HTTP app (python -m
+              rag_arc_tpu_torch.serving.app --store DIR | --config JSON),
+              the PipelineConfig tree
+  framework/  tagged-union pydantic configs and the Register singleton
+  llm/        LLMBase, FakeLLM, OpenAICompatLLM (stdlib HTTP)
+  chunking/   the markdown, token, recursive and semantic splitters
+  parsing/    txt/md, docx, xlsx/csv, pptx and html parsers, MultiParser
   native/     the host C++ BM25 scorer and tokenizer, built with g++ on
               first use
-  tools/      kernel_probe (python -m rag_arc_tpu_torch.tools.kernel_probe),
-              bm25_synth (zipf CSR corpora and query profiles)
+  tools/      ingest (python -m rag_arc_tpu_torch.tools.ingest DIR -o OUT),
+              kernel_probe, bm25_synth (zipf CSR corpora and query
+              profiles), doc_synth (multi-format document directories)
   utils/      Document, RWLock, stage tracing, TransferPool, rank fusion
 
 Every allocating constructor takes an explicit ``device``.

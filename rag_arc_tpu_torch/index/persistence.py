@@ -6,8 +6,11 @@ The format is the JAX package's ``rag_arc_tpu.store.v1``: a directory with
 (f32 rows, or raw int8 codes), ``scales.npy`` (int8 block scales),
 ``valid.npy``, and for a residual sidecar ``res.npy`` / ``res_scales.npy``.
 A snapshot either package writes loads in the other; int8 snapshots
-restore bit-exactly through ``DeviceFlatIndex.restore_rows``. IVF and HNSW
-indexes and the blob docstore are not ported yet.
+restore bit-exactly through ``DeviceFlatIndex.restore_rows``. A store on
+the disk-backed ``BlobDocstore`` snapshots its blob and position arrays
+under ``docstore_blob/`` (manifest ``"docstore": "blob"``) instead of
+``docstore.json``, and a loaded blob snapshot reattaches in place. IVF and
+HNSW indexes are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from rag_arc_tpu_torch.models.embeddings import Embeddings
 from rag_arc_tpu_torch.utils.data_model import Document
+from rag_arc_tpu_torch.index.blob_docstore import BlobDocstore
 from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
 
 FORMAT = "rag_arc_tpu.store.v1"
@@ -47,14 +51,23 @@ def save_store(store: TorchVectorStore, path: str | Path) -> Path:
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     index = store.index
-    rows = [
-        {"id": doc_id, "content": doc.content, "metadata": doc.metadata,
-         "position": store.docstore.position_of(doc_id)}
-        for doc_id, doc in store.docstore.items()
-    ]
-    (path / "docstore.json").write_text(json.dumps(rows, ensure_ascii=False), encoding="utf-8")
+    if isinstance(store.docstore, BlobDocstore):
+        # disk-backed store: the blob and its position arrays, never the
+        # corpus materialized in RAM
+        store.docstore.save(path / "docstore_blob")
+        docstore_kind = "blob"
+    else:
+        rows = [
+            {"id": doc_id, "content": doc.content, "metadata": doc.metadata,
+             "position": store.docstore.position_of(doc_id)}
+            for doc_id, doc in store.docstore.items()
+        ]
+        (path / "docstore.json").write_text(
+            json.dumps(rows, ensure_ascii=False), encoding="utf-8"
+        )
+        docstore_kind = "json"
     manifest: Dict[str, Any] = {
-        "docstore": "json",
+        "docstore": docstore_kind,
         "format": FORMAT,
         "metric": store.metric,
         "dim": store._dim,
@@ -117,10 +130,7 @@ def load_store(
     manifest = json.loads((path / "manifest.json").read_text(encoding="utf-8"))
     if manifest.get("format") != FORMAT:
         raise ValueError(f"unrecognized store snapshot format in {path}")
-    if manifest.get("docstore") == "blob":
-        raise NotImplementedError(
-            "blob-docstore snapshots are not ported yet (ROADMAP Queue 1 #12)"
-        )
+    blob_backed = manifest.get("docstore") == "blob"
     kind = manifest.get("index_kind")
     if kind not in ("flat", None):
         raise NotImplementedError(
@@ -148,6 +158,9 @@ def load_store(
         device=device,
         # snapshots without the key were built at the historical kf_mult 4
         kf_mult=manifest.get("kf_mult") or 4,
+        # a blob snapshot reattaches in place: the loaded store reads (and,
+        # if mutated, appends) in the snapshot directory
+        docstore_path=str(path / "docstore_blob") if blob_backed else None,
     )
     if kind == "flat":
         emb = np.load(path / "emb.npy")
@@ -170,7 +183,9 @@ def load_store(
             dead = np.nonzero(~valid)[0]
             if dead.size:
                 store.index.mark_deleted(dead)
-    rows = json.loads((path / "docstore.json").read_text(encoding="utf-8"))
-    docs = [Document(content=r["content"], metadata=r["metadata"], id=r["id"]) for r in rows]
-    store.docstore.add(docs, [r["position"] for r in rows])
+    if not blob_backed:
+        rows = json.loads((path / "docstore.json").read_text(encoding="utf-8"))
+        docs = [Document(content=r["content"], metadata=r["metadata"], id=r["id"])
+                for r in rows]
+        store.docstore.add(docs, [r["position"] for r in rows])
     return store

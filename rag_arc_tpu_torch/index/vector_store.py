@@ -6,10 +6,12 @@ get_by_ids, the ``similarity_search*`` family, relevance-score
 normalization, ``from_texts``/``from_documents`` and ``as_retriever``.
 
 ``TorchVectorStore`` keeps vectors in a ``DeviceFlatIndex`` on the card
-and documents in a host ``Docstore``. Deletes tombstone; ``compact()``
-reclaims space. The batched query path chains the encoder forward into
-the index search on the device: token ids go up, one (scores, positions)
-readback comes down.
+and documents in a host ``Docstore`` (or, with ``docstore_path``, the
+disk-backed ``BlobDocstore``). Deletes tombstone; ``compact()`` reclaims
+space. MMR gathers its candidates' vectors from the index (``take``) and
+selects on the host (``ops/mmr.py``). The batched query path chains the
+encoder forward into the index search on the device: token ids go up,
+one (scores, positions) readback comes down.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from rag_arc_tpu_torch.utils.locks import RWLock
 from rag_arc_tpu_torch.utils.tracing import get_tracer, stage  # noqa: F401 (re-exported: the store's spans)
 from rag_arc_tpu_torch.index.docstore import Docstore
 from rag_arc_tpu_torch.index.flat import DeviceFlatIndex, normalize_raw, pair_readback
+from rag_arc_tpu_torch.ops.mmr import mmr_select
 
 logger = logging.getLogger(__name__)
 
@@ -223,7 +226,9 @@ class TorchVectorStore(VectorStore):
 
     ``dtype=torch.int8`` stores block-quantized int8 rows; ``refine``
     (``"default"``, None, ``"int4"``, ``"int8"``), ``kf_mult`` and
-    ``rescore_i8`` pass through to the index (see ``index/flat.py``)."""
+    ``rescore_i8`` pass through to the index (see ``index/flat.py``).
+    ``docstore_path`` keeps document content on disk in a ``BlobDocstore``
+    there (mmap reads, bounded host RAM) for large corpora."""
 
     def __init__(
         self,
@@ -238,6 +243,7 @@ class TorchVectorStore(VectorStore):
         refine: Optional[str] = "default",
         kf_mult: int = 2,
         rescore_i8: bool = True,
+        docstore_path: Optional[str] = None,
     ):
         self.embedding = embedding
         self.metric = metric
@@ -246,7 +252,12 @@ class TorchVectorStore(VectorStore):
         self._rw = RWLock()
         self._init_capacity = capacity
         self._dtype = dtype
-        self.docstore = Docstore()
+        if docstore_path is not None:
+            from rag_arc_tpu_torch.index.blob_docstore import BlobDocstore
+
+            self.docstore = BlobDocstore(docstore_path)
+        else:
+            self.docstore = Docstore()
         self.index: Optional[DeviceFlatIndex] = None
         self.compact_threshold = compact_threshold
         # int8 residual-refinement ladder; "default" keeps the index's
@@ -533,7 +544,36 @@ class TorchVectorStore(VectorStore):
         lambda_mult: float = 0.5,
         **kwargs: Any,
     ) -> List[Document]:
-        raise NotImplementedError("MMR search is not ported yet (ROADMAP Queue 1 #14)")
+        vec = np.asarray(self.embedding.encode([query])[0])
+        return self.max_marginal_relevance_search_by_vector(
+            vec, k=k, fetch_k=fetch_k, lambda_mult=lambda_mult
+        )
+
+    def max_marginal_relevance_search_by_vector(
+        self,
+        embedding: Sequence[float],
+        k: int = 4,
+        fetch_k: int = 20,
+        lambda_mult: float = 0.5,
+    ) -> List[Document]:
+        if self.index is None or self.index.n_active == 0:
+            return []
+        q = np.asarray(embedding, dtype=np.float32).reshape(1, -1)
+        with self._rw.read():
+            _, positions = self.index.search(q, fetch_k)
+            cand_pos = positions[0][positions[0] >= 0]
+            if cand_pos.size == 0:
+                return []
+            cand_vecs = self.index.take(cand_pos)
+            # select AND resolve under the lock: a concurrent compaction
+            # would remap positions out from under cand_pos
+            chosen = mmr_select(q[0], cand_vecs, k=k, lambda_mult=lambda_mult)
+            docs = []
+            for i in chosen:
+                doc = self.docstore.get_by_position(int(cand_pos[i]))
+                if doc is not None:
+                    docs.append(doc)
+            return docs
 
     # -- introspection ----------------------------------------------------
 

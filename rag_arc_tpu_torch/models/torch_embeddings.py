@@ -44,6 +44,7 @@ class TorchEncoderEmbeddings(Embeddings):
         tokenizer=None,
         batch_size: int = 64,
         seed: int = 0,
+        pack_short: bool = True,
         *,
         device: torch.device | str,
     ):
@@ -63,6 +64,8 @@ class TorchEncoderEmbeddings(Embeddings):
         )
         self.batch_size = batch_size
         self.dim = self.cfg.dim
+        # False: every text padded to its length bucket, none packed
+        self.pack_short = bool(pack_short)
         # packed positions run up to the doc length: stay inside the table
         self._pack_max = min(PACK_MAX_TOKENS, self.cfg.max_len)
 
@@ -113,8 +116,9 @@ class TorchEncoderEmbeddings(Embeddings):
         cleaned = [t.replace("\n", " ") for t in texts]
         out = np.empty((len(cleaned), self.dim), dtype=np.float32)
         token_lists = self._token_lists(cleaned)
-        short = [i for i, tl in enumerate(token_lists) if len(tl) <= self._pack_max]
-        long = [i for i, tl in enumerate(token_lists) if len(tl) > self._pack_max]
+        pack_max = self._pack_max if self.pack_short else -1
+        short = [i for i, tl in enumerate(token_lists) if len(tl) <= pack_max]
+        long = [i for i, tl in enumerate(token_lists) if len(tl) > pack_max]
         if short:
             out[short] = self._encode_packed([token_lists[i] for i in short])
         if long:

@@ -6,7 +6,10 @@ select's live picks, flags and residuals exactly), offset views,
 padded d, ragged lengths and query blocks, g up to 256, dead sub-tiles,
 KV heads shared by 1-8 query heads, ``out=`` views, the launch counts,
 the wrappers' refusals, and small Qwen3 forwards through both attention
-kernels (one launch each a layer, no plain version). They skip where no
+kernels (one launch each a layer, no plain version); an HTTP ``/batch``
+served at B=300 over a two-level-sized store (the producer and the
+select launch once each) and a blob-backed store's snapshot round trip
+on the card. They skip where no
 CUDA card is present (a CUDA kernel has no CPU mode); on a machine with a
 card run
 
@@ -1104,3 +1107,79 @@ def test_bm25_every_backend_equals_host_scorer(cuda, bm25_csr):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert routed.search_dispatch(mixed, 10).result()[0].shape == (32, 10)
+
+
+def _post(url, payload):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        assert resp.status == 200
+        return json.loads(resp.read())
+
+
+def test_http_batch_takes_the_kernel_path(cuda):
+    """A /batch of B=300 over a store whose capacity (2^20 rows) puts the
+    score matrix past the direct path's budget: the served answers come
+    from the sub-tile-max kernel and the select (one launch each), equal
+    to the store's own batched search, each text's source first."""
+    import threading
+
+    from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
+    from rag_arc_tpu_torch.models.embeddings import HashEmbeddings
+    from rag_arc_tpu_torch.serving.app import make_server
+    from rag_arc_tpu_torch.serving.pipeline import RagPipeline
+
+    rng = np.random.default_rng(0)
+    vocab = [f"w{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(vocab, 12)) for _ in range(4000)]
+    store = TorchVectorStore(HashEmbeddings(dim=64), capacity=1 << 20,
+                             dtype=torch.bfloat16, device=cuda)
+    store.add_texts(texts, ids=[f"d{i}" for i in range(len(texts))])
+    assert 4 * 300 * store.index.capacity > store.index.SCORE_BYTES_BUDGET
+    pipe = RagPipeline(store.as_retriever(search_kwargs={"k": 10}), top_k=10, batch_max=512)
+    pipe.warmup(batch_sizes=(300,))
+    srv = make_server(pipe, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        queries = texts[:300]
+        sm.launches = ss.launches = 0
+        out = _post(f"http://127.0.0.1:{srv.server_port}/batch",
+                    {"queries": queries, "response": "ids"})
+        assert (sm.launches, ss.launches) == (1, 1)
+        got = [[d["id"] for d in r] for r in out["results"]]
+        want = [[d.id for d, _ in h]
+                for h in store.batch_similarity_search_with_score(queries, k=10)]
+        assert got == want
+        assert all(r[0] == f"d{i}" for i, r in enumerate(got))
+        assert pipe.batcher.stats["max_batch_seen"] == 300
+    finally:
+        srv.shutdown()
+
+
+def test_blob_store_round_trips_on_the_card(cuda, tmp_path):
+    from rag_arc_tpu_torch.index.blob_docstore import BlobDocstore
+    from rag_arc_tpu_torch.index.persistence import load_store, save_store
+    from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
+    from rag_arc_tpu_torch.models.embeddings import HashEmbeddings
+
+    texts = [f"document number {i} about topic {i % 7}" for i in range(500)]
+    ids = [f"d{i}" for i in range(500)]
+    emb = HashEmbeddings(dim=48)
+    store = TorchVectorStore(emb, dtype=torch.bfloat16, docstore_path=str(tmp_path / "live"),
+                             device=cuda)
+    store.add_texts(texts, metadatas=[{"i": i} for i in range(500)], ids=ids)
+    store.delete(ids[:5])
+    save_store(store, tmp_path / "snap")
+    want = store.batch_similarity_search_with_score(texts[5:40], k=5)
+    for device in (cuda, "cpu"):
+        loaded = load_store(tmp_path / "snap", emb, device=device)
+        assert isinstance(loaded.docstore, BlobDocstore) and len(loaded) == 495
+        assert loaded.index.dtype == torch.bfloat16
+        got = loaded.batch_similarity_search_with_score(texts[5:40], k=5)
+        assert [[d.id for d, _ in h] for h in got] == [[d.id for d, _ in h] for h in want]
+        assert got[0][0][0].metadata == {"i": 5}
+    mmr = loaded.max_marginal_relevance_search(texts[7], k=3, fetch_k=10)
+    assert mmr[0].id == "d7" and len({d.id for d in mmr}) == 3

@@ -455,9 +455,9 @@ def test_snapshot_refusals(tmp_path):
     with pytest.raises(ValueError, match="int8 codes"):
         tpers.load_store(tmp_path / "snap", emb, dtype=torch.float32, device="cpu")
     manifest = json.loads((tmp_path / "snap" / "manifest.json").read_text())
+    # blob-docstore snapshots load now (tests/test_torch_ingest.py)
     for key, value, match in (("index_kind", "ivf", "Queue 1 #13"),
-                              ("index_kind", "hnsw", "Queue 1 #13"),
-                              ("docstore", "blob", "ROADMAP")):
+                              ("index_kind", "hnsw", "Queue 1 #13")):
         bad = dict(manifest, **{key: value})
         (tmp_path / "snap" / "manifest.json").write_text(json.dumps(bad))
         with pytest.raises(NotImplementedError, match=match):
