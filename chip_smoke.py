@@ -6,7 +6,7 @@
 Phases, each printing its own lines and times:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the eight CUDA sources of ``rag_arc_tpu_torch/csrc`` for
+  2. build: compile the nine CUDA sources of ``rag_arc_tpu_torch/csrc`` for
      sm_90a, one ``nvcc`` each, in parallel (nvcc's register / shared-memory
      report is printed);
   3. kernels against their plain PyTorch versions on the card (N = 262,144,
@@ -86,6 +86,26 @@ Phases, each printing its own lines and times:
        batches: QPS, p50, recall@10, bytes on the card, host quantization
        time, and one B = 1 search whose peak memory must stay under the
        index's resident bytes + 1 GiB (no f32 copy of the corpus);
+     - ivf: ``tools/ivf_oracle.py``'s clustered corpus (1,000,000 x 768,
+       256 centres, noise 0.3) and 1,024 queries, the exact f32 top-10 on
+       the card and the FAISS-defaults numpy oracle's recall curve; four
+       ``DeviceIVFIndex`` builds at nlist 100 (f32, bf16, bf16 spill 2,
+       int8), each timed by stage (k-means, assignment, packing, upload)
+       and searched at nprobe 1-32: recall@10 beside the oracle's, every
+       search's ids held to the all-plain pipeline's (``ivf_scan_plain``
+       + the select's tournament) up to k-th-score ties, one scan and one
+       select launch a dispatch, spill 2's rows k distinct positions, f32
+       recall >= 0.99 at nprobe 16 and 32; search ms and QPS at B 1 / 8 /
+       32 and nprobe 8 / 16 / 32 beside the bf16 flat index at the same B;
+       the exhaustive probe against the flat index up to ties;
+       ``ivf_scan`` against its plain version (f32 / bf16 cosine and ip,
+       int8, l2 on 2^18 f32 rows; B 1 / 7 / 33, nprobe 1 / 8 / 100; dead
+       slots; d = 100 on offset views) and timed in turns at B = 32,
+       nprobe 8 with its bound; an IVF store snapshot round trip;
+     - hnsw: ``tools/hnsw_bench.py``'s corpus cut to 6,144 x 768 (the host
+       engine's add is single-threaded), f32, SQ8 and PQ + refine
+       built concurrently: build s, batch and single-query QPS, recall@10
+       against the exact top-10, a snapshot round trip each;
   5. end to end (the select kernel's launches counted as well):
      ``TorchEncoderEmbeddings`` at the full 768 x 12 config
      (seeded random weights) feeding ``TorchVectorStore.from_texts``:
@@ -136,13 +156,17 @@ Phases, each printing its own lines and times:
        batch's device split; served ids equal the direct search's, the
        producer and select kernels launched by the served traffic, MMR
        ids equal ``mmr_select`` over the store's own top 20;
+     - serve_ingest also ingests the files dense-only as IVF (bf16, nlist
+       ~ sqrt(chunks), trained on every chunk) and as HNSW (SQ8) and serves
+       each snapshot through ``--store`` with the same checks;
      - serve_rerank: serve_2m's retriever with the Qwen3 cross-encoder
        (recall 50, top 10) behind the app, 4 requests of 8 queries: each
        answer a sorted subset of the retrieved 50 in ``rerank_batch``'s
        order, ``rope_prep`` and ``flash_attention`` 28 launches a forward;
      - serve_config: a ``PipelineConfig`` document (MULTIPATH over
        ``TORCH_EMBEDDINGS`` 768 x 12 and BM25, REWRITE with FAKE_LLM)
-       through ``Register``, 64 queries over HTTP.
+       through ``Register``, 64 queries over HTTP; then a DENSE config with
+       ``index_type: "ivf"`` (nlist 64) over the same 4,096 documents.
 
 Every check that fails ends the run with a non-zero exit; a serving phase
 fails on any response other than 200 and on any client error. Without a
@@ -303,6 +327,28 @@ SERVE_RERANK_REQUESTS = 4
 SERVE_RERANK_QPR = 8
 SERVE_CONFIG_DOCS = 4096
 SERVE_CONFIG_QUERIES = 64
+SERVE_CONFIG_NLIST = 64  # the IVF config's lists over its 4,096 documents
+# the ivf phase: tools/ivf_oracle.py's clustered corpus at the JAX
+# package's r5 operating point (nlist 100, the FAISS reference default)
+IVF_N = 1_000_000
+IVF_NLIST = 100
+IVF_QUERIES = 1024
+IVF_NPROBES = (1, 2, 4, 8, 16, 32)
+IVF_BUILDS = (("f32", 1), ("bf16", 1), ("bf16", 2), ("int8", 1))
+IVF_TIMED_B = (1, 8, 32)
+IVF_TIMED_NPROBES = (8, 16, 32)
+IVF_REPS = 5
+IVF_PLAIN_B = 64  # queries a dispatch of the all-plain pipeline
+IVF_L2_N = 1 << 18  # the l2 build's rows
+IVF_SNAP_N = 1 << 17  # the snapshot round trip's rows
+IVF_TOL = 1e-5  # f32 sums of 768 exact products in another order; |scores| <= ~2
+IVF_FLAT_TIE = 1e-3  # the flat index's bf16 query normalization moves scores ~1e-4
+IVF_RECALL_MIN = 0.99
+# the hnsw phase: tools/hnsw_bench.py's corpus and settings
+HNSW_N = 6_144  # tools/hnsw_bench.py builds 100,000: cut so the f32 build stays under 60 s
+HNSW_QUERIES = 512
+HNSW_EF = 64
+HNSW_SINGLE = 64
 
 CARD = ""
 ROOT = Path(__file__).resolve().parent
@@ -2569,13 +2615,38 @@ def serve_snapshot_checks(torch, snap: Path, dev, rows: list[dict]):
     return full["results"]
 
 
+def run_ingest(torch, ingest, tmp: Path, name: str, extra: list[str]) -> int:
+    """tools/ingest.py's main() on tmp/docs into tmp/<name> with the full
+    encoder on the card; reports the split and returns the chunk count."""
+    import ast
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ingest.main([str(tmp / "docs"), "-o", str(tmp / name), "--embedder", "torch",
+                          "--dim", str(DIM), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"ingest main() returned {rc}")
+    stats = dict(line.split(": ", 1) for line in buf.getvalue().splitlines() if ": " in line)
+    files, chunks = int(stats["files"]), int(stats["chunks"])
+    split = ast.literal_eval(stats["stages_s"])
+    report(f"ingest ({name}: {' '.join(extra)}): {files} files -> {chunks} chunks in "
+           f"{wall:.2f} s = {files / wall:.1f} files/s, {chunks / wall:.1f} chunks/s (host "
+           "clock); split s: " + ", ".join(f"{k} {v}" for k, v in split.items()))
+    check(files == len(list((tmp / "docs").iterdir())),
+          f"parse_tree parsed {files} files of {tmp / 'docs'}")
+    return chunks
+
+
 def phase_serve_ingest(torch, dev, tmp: Path) -> None:
     """tools/ingest.py's main() (the full 768 x 12 encoder on the card, the
     BM25 twin, bf16), once with the JSON docstore and once with the blob
-    docstore, then each snapshot through the app's --store path."""
-    import ast
+    docstore, then each snapshot through the app's --store path; then
+    dense-only IVF (bf16, nlist ~ sqrt(chunks), trained on every chunk) and
+    HNSW (SQ8) ingests of the same files, each served the same way."""
     import importlib.util
-    import io
 
     from rag_arc_tpu_torch.tools import ingest
     from rag_arc_tpu_torch.tools.doc_synth import FORMATS, write_corpus
@@ -2590,24 +2661,9 @@ def phase_serve_ingest(torch, dev, tmp: Path) -> None:
     report(f"wrote {len(written)} files in {time.perf_counter() - t0:.2f} s; html "
            + ("written" if has_bs4 else "not written: this machine has no bs4, which "
               "HtmlParser imports when it parses (the CPU tests hold html parsing)"))
-    outs = {}
-    for name, extra in (("json", []), ("blob", ["--blob-docstore"])):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = ingest.main([str(tmp / "docs"), "-o", str(tmp / name), "--embedder", "torch",
-                              "--dim", str(DIM), "--bm25", "--dtype", "bfloat16", *extra])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check(rc == 0, f"ingest main() returned {rc}")
-        stats = dict(line.split(": ", 1) for line in buf.getvalue().splitlines() if ": " in line)
-        files, chunks = int(stats["files"]), int(stats["chunks"])
-        split = ast.literal_eval(stats["stages_s"])
-        report(f"ingest ({name} docstore): {files} files -> {chunks} chunks in {wall:.2f} s = "
-               f"{files / wall:.1f} files/s, {chunks / wall:.1f} chunks/s (host clock); split s: "
-               + ", ".join(f"{k} {v}" for k, v in split.items()))
-        check(files == len(written), f"parse_tree parsed {files} of {len(written)} files")
-        outs[name] = chunks
+    outs = {name: run_ingest(torch, ingest, tmp, name,
+                             ["--bm25", "--dtype", "bfloat16", *extra])
+            for name, extra in (("json", []), ("blob", ["--blob-docstore"]))}
     check(outs["json"] == outs["blob"], f"the two ingests chunked differently: {outs}")
     rows = json.loads((tmp / "json" / "dense" / "docstore.json").read_text(encoding="utf-8"))
     seen = {Path(r["metadata"]["source"]).suffix.lstrip(".") for r in rows}
@@ -2624,6 +2680,16 @@ def phase_serve_ingest(torch, dev, tmp: Path) -> None:
     same = keyed(res_blob) == keyed(res_json)
     report(f"the blob snapshot serves the JSON snapshot's documents in the same order: {same}")
     check(same, "the blob snapshot serves other answers than the JSON one")
+    chunks = outs["json"]
+    nlist = int(round(chunks ** 0.5))
+    for name, extra in (("ivf", ["--index-type", "ivf", "--nlist", str(nlist), "--batch",
+                                 str(chunks), "--dtype", "bfloat16"]),
+                        ("hnsw", ["--index-type", "hnsw", "--dtype", "int8"])):
+        check(run_ingest(torch, ingest, tmp, name, extra) == chunks,
+              f"the {name} ingest chunked differently")
+        manifest = json.loads((tmp / name / "dense" / "manifest.json").read_text())
+        check(manifest["index_kind"] == name, f"the {name} snapshot holds {manifest}")
+        serve_snapshot_checks(torch, tmp / name, dev, rows)
 
 
 def load_pass(port: int, bodies: list[list[bytes]]) -> dict:
@@ -2941,6 +3007,384 @@ def phase_serve_config(torch, dev, tmp: Path, texts: list[str]) -> None:
            f"{len(queries)}; rewriter {type(pipe.rewriter.llm).__name__}")
     check(found >= 0.99 * len(queries), f"only {found}/{len(queries)} sources found")
     Register().clear()
+    # a DENSE retriever with index_type ivf: the store stages the documents
+    # in a flat index and trains the lists when they arrive
+    doc = {"type": "PIPELINE", "top_k": K, "batch_max": 128, "batch_wait_ms": SERVE_WAIT_MS,
+           "device": str(dev),
+           "retriever": {"type": "DENSE", "embeddings": {"type": "TORCH_EMBEDDINGS"},
+                         "dtype": "bfloat16", "index_type": "ivf",
+                         "nlist": SERVE_CONFIG_NLIST, "nprobe": 8, "k": K}}
+    path.write_text(json.dumps(doc), encoding="utf-8")
+    t0 = time.perf_counter()
+    pipe = Register().register(path, "pipeline", PipelineConfig)
+    check(pipe is not None, "the registry did not build the IVF pipeline")
+    pipe.retriever.add_documents(docs)
+    pipe.warmup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    st = pipe.retriever.vectorstore.index.stats()
+    check(st["kind"] == "ivf" and st["device"] == str(dev), f"the IVF config built {st}")
+    with served(pipe) as port:
+        http = _Http(port)
+        t0 = time.perf_counter()
+        got = batch_ids(http.post("/batch", {"queries": queries}))
+        ms = (time.perf_counter() - t0) * 1e3
+        http.close()
+    found = sum(f"d{i}" in ids for i, ids in enumerate(got))
+    report(f"IVF config (DENSE, index_type ivf, nlist {SERVE_CONFIG_NLIST}, bf16): built, "
+           f"filled (trained at {st['size']} rows, lmax {st['lmax']}) and warmed in "
+           f"{build_s:.2f} s; {len(queries)} queries in one /batch {ms:.1f} ms (host clock); "
+           f"source in the top {K}: {found}/{len(queries)}")
+    check(found >= 0.99 * len(queries), f"IVF config: only {found}/{len(queries)} found")
+    Register().clear()
+
+
+def ids_off_ties(s, p, ws, wp, tol: float) -> int:
+    """Rows whose ids differ from the reference's (ws, wp) other than by
+    entries whose scores lie within ``tol`` of the reference's k-th score
+    (0 = equal up to ties at the k-th score). Host arrays, (B, k)."""
+    bad = 0
+    for r in range(len(wp)):
+        a, b = set(p[r][p[r] >= 0].tolist()), set(wp[r][wp[r] >= 0].tolist())
+        if a == b:
+            continue
+        fin = ws[r][np.isfinite(ws[r])]
+        kth = fin.min() if fin.size else -np.inf
+        odd = [s[r][list(p[r]).index(x)] for x in a - b] + \
+              [ws[r][list(wp[r]).index(x)] for x in b - a]
+        bad += any(abs(v - kth) > tol for v in odd)
+    return bad
+
+
+def plain_search(torch, index, q_dev, nprobe: int):
+    """The all-plain pipeline (``ivf_scan_plain`` + the select's
+    tournament) over ``q_dev`` in IVF_PLAIN_B dispatches, host arrays."""
+    parts = [index.search_sub(q_dev[i : i + IVF_PLAIN_B], K, nprobe, plain=True)
+             for i in range(0, q_dev.shape[0], IVF_PLAIN_B)]
+    s = torch.cat([a for a, _ in parts]).cpu().numpy()
+    p = torch.cat([b for _, b in parts]).cpu().numpy()
+    return s, np.where(np.isneginf(s), -1, p)
+
+
+def scan_operands(torch, index, q, metric: str, nprobe: int):
+    """(q as searched, probe (B, nprobe), cross) of ``q`` (B, d) on
+    ``index``, as ``DeviceIVFIndex.search_sub`` makes them."""
+    from rag_arc_tpu_torch.ops.bm25 import full_f32_matmul
+    from rag_arc_tpu_torch.ops.scoring import l2_normalize
+    from rag_arc_tpu_torch.ops.topk import stable_topk
+
+    if metric == "cosine":
+        q = l2_normalize(q)
+    with full_f32_matmul():
+        cross = q @ index.centroids.T
+    c = 2.0 * cross - (index.centroids ** 2).sum(1) if metric == "l2" else cross
+    return q, stable_topk(c, nprobe)[1], cross
+
+
+def scan_check(torch, isc, index, q_dev, metric: str, b: int, nprobe: int, what: str,
+               d: int | None = None, offset: int = 0) -> float:
+    """ivf_scan against ivf_scan_plain on ``index``'s lists: masks equal,
+    scores within IVF_TOL. ``d``/``offset``: a view of each row's
+    [offset, offset + d) columns (and of the queries')."""
+    q, probe, cross = scan_operands(torch, index, q_dev[:b], metric, nprobe)
+    lists = index.lists
+    if d is not None:
+        lists, q = lists[:, :, offset : offset + d], q[:, offset : offset + d].contiguous()
+    args = (q, probe, lists, index.sqnorm, index.valid, metric,
+            cross if index.quantized else None)
+    got = isc.ivf_scan(*args)
+    want = isc.ivf_scan_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          f"ivf_scan {what}: the dead-slot mask differs from its plain version's")
+    live = torch.isfinite(want)
+    err = float((got[live] - want[live]).abs().max()) if bool(live.any()) else 0.0
+    check(err <= IVF_TOL, f"ivf_scan {what}: max |kernel - plain| {err:.3g} > {IVF_TOL}")
+    return err
+
+
+def resident(index) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (index.lists, index.sqnorm, index.valid, index.pos, index.centroids))
+
+
+def phase_ivf(torch, isc, ss, dev, tmp: Path) -> tuple[dict, dict]:
+    """The IVF path at 1M x 768 on the oracle's clustered corpus: four
+    builds, each searched at every nprobe of the recall curve and held to
+    the all-plain pipeline, the kernel against its plain version, timed
+    searches beside the bf16 flat index, the exhaustive probe against the
+    flat index and a store snapshot round trip."""
+    from rag_arc_tpu_torch.index.flat import DeviceFlatIndex
+    from rag_arc_tpu_torch.index.ivf import DeviceIVFIndex
+    from rag_arc_tpu_torch.index.persistence import load_store, save_store
+    from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
+    from rag_arc_tpu_torch.models.embeddings import HashEmbeddings
+    from rag_arc_tpu_torch.tools import ivf_oracle as orc
+
+    phase(f"ivf: {IVF_N} x {DIM} clustered (tools/ivf_oracle.py, 256 centres, noise 0.3), "
+          f"nlist {IVF_NLIST}, k={K}, {IVF_QUERIES} queries; builds "
+          + ", ".join(f"{d} spill {s}" for d, s in IVF_BUILDS))
+    t0 = time.perf_counter()
+    corpus, q, rng = orc.clustered_corpus(IVF_N, DIM, IVF_QUERIES)
+    gen_s = time.perf_counter() - t0
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    q_dev = torch.from_numpy(q).to(dev)
+    t0 = time.perf_counter()
+    exact = orc.masked_topk(corpus_dev, q_dev, K)
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = orc.Oracle(corpus, corpus_dev, IVF_NLIST, rng)
+    curve = {}
+    for nprobe in IVF_NPROBES:
+        ids, frac = oracle.search(q, K, nprobe)
+        curve[nprobe] = (orc.recall(ids, exact), frac)
+    report(f"corpus {gen_s:.2f} s (host numpy), exact f32 top-{K} on the card {exact_s:.2f} s; "
+           f"FAISS-defaults oracle (numpy k-means 25 iters on {256 * IVF_NLIST} rows, its "
+           f"lists {oracle.sizes.min()}/{oracle.sizes.mean():.0f}/{oracle.sizes.max()} "
+           f"min/mean/max) {time.perf_counter() - t0:.2f} s; oracle recall@{K} (scan "
+           "fraction): " + ", ".join(f"nprobe {n} {r:.4f} ({f:.4f})"
+                                     for n, (r, f) in curve.items()))
+    launches = {"ivf_scan": 0, "subtile_select": 0}
+    kept, errs = {}, []
+    for name, spill in IVF_BUILDS:
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[name]
+        t0 = time.perf_counter()
+        index = DeviceIVFIndex.from_vectors(corpus, nlist=IVF_NLIST, nprobe=8, dtype=dtype,
+                                            spill=spill, device=dev)
+        build_s = time.perf_counter() - t0
+        st = index.stats()
+        report(f"{name} spill {spill}: built in {build_s:.2f} s (host clock; split s: "
+               + ", ".join(f"{k} {v:.2f}" for k, v in index.build_seconds.items())
+               + f"), lmax {index.lmax}, list fill mean/max {st['list_fill_mean']:.0f}/"
+               f"{st['list_fill_max']}, resident {resident(index) / 1e9:.3f} GB")
+        rec, worst = {}, 0
+        for nprobe in IVF_NPROBES:
+            c0, s0 = isc.launches, ss.launches
+            s, p = index.search(q, K, nprobe=nprobe)
+            subs = -(-IVF_QUERIES // index._sub_batch(nprobe))
+            dc, ds = isc.launches - c0, ss.launches - s0
+            check(dc == subs and ds == subs, f"{name} spill {spill} nprobe {nprobe}: "
+                  f"{dc} scans and {ds} selects for {subs} dispatches")
+            launches["ivf_scan"] += dc
+            launches["subtile_select"] += ds
+            rec[nprobe] = orc.recall(p, exact)
+            if spill > 1:
+                check(all(len(set(r.tolist())) == K and (r >= 0).all() for r in p),
+                      f"spill {spill} nprobe {nprobe}: a row lacks {K} distinct positions")
+            with uncounted(isc, ss):
+                ws, wp = plain_search(torch, index, q_dev, nprobe)
+            fin = np.isfinite(ws)
+            err = float(np.abs(s[fin] - ws[fin]).max())
+            off = ids_off_ties(s, p, ws, wp, IVF_TOL)
+            check(err <= IVF_TOL and off == 0, f"{name} spill {spill} nprobe {nprobe}: "
+                  f"scores {err:.3g} from the all-plain pipeline's, {off} rows off ties")
+            worst = max(worst, err)
+        report(f"{name} spill {spill} recall@{K} (oracle's beside it; scan fraction upper "
+               "bound nprobe*lmax/N): " + ", ".join(
+                   f"nprobe {n} {r:.4f} / {curve[n][0]:.4f} ({n * index.lmax / IVF_N:.4f})"
+                   for n, r in rec.items())
+               + f"; every search's ids = the all-plain pipeline's (max |d score| {worst:.3g})"
+               + (f"; {K} distinct positions a row" if spill > 1 else ""))
+        if (name, spill) == ("f32", 1):
+            for n in (16, 32):
+                check(rec[n] >= IVF_RECALL_MIN, f"f32 spill 1 recall@{K} {rec[n]:.4f} < "
+                      f"{IVF_RECALL_MIN} at nprobe {n}")
+        times = []
+        with uncounted(isc, ss):
+            for b in IVF_TIMED_B:
+                for nprobe in IVF_TIMED_NPROBES:
+                    index.search_sub(q_dev[:b], K, nprobe)
+                    torch.cuda.synchronize()
+                    ms = cuda_ms(lambda: index.search_sub(q_dev[:b], K, nprobe), IVF_REPS)
+                    t0 = time.perf_counter()
+                    for _ in range(IVF_REPS):
+                        index.search(q[:b], K, nprobe=nprobe)
+                    host_ms = (time.perf_counter() - t0) * 1e3 / IVF_REPS
+                    times.append(f"B={b} nprobe {nprobe} {ms:.3f} ms = {b / ms * 1e3:.0f} QPS "
+                                 f"(host {host_ms:.3f} ms = {b / host_ms * 1e3:.0f} QPS)")
+        report(f"{name} spill {spill} search (CUDA events over search_sub, mean of "
+               f"{IVF_REPS}; host clock over search, numpy in and out): " + "; ".join(times))
+        if spill == 1:
+            kept[name] = index
+        del index
+        torch.cuda.empty_cache()
+
+    bf16 = kept["bf16"]
+    # the exhaustive probe is exact under the storage metric: the bf16
+    # flat index on the same rows, ids up to ties. Ties are judged on one
+    # scoring (the IVF's query rounded to bf16 against the bf16 rows): the
+    # flat index rounds its normalized query in bf16 itself
+    flat = DeviceFlatIndex(dim=DIM, capacity=IVF_N, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    flat.add(corpus)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    fs, fp = flat.search(q, K)
+    s, p = bf16.search(q, K, nprobe=IVF_NLIST)
+    qh = scan_operands(torch, bf16, q_dev, "cosine", 1)[0].to(torch.bfloat16).float()
+
+    def ref(ids):
+        rows = flat.emb[torch.from_numpy(ids).to(dev)].float()
+        return torch.einsum("bkd,bd->bk", rows, qh).cpu().numpy()
+
+    off = ids_off_ties(ref(p), p, ref(fp), fp, IVF_FLAT_TIE)
+    moved = int(sum(set(a.tolist()) != set(b.tolist()) for a, b in zip(p, fp)))
+    report(f"exhaustive probe (nprobe {IVF_NLIST}) vs the bf16 flat index (added in "
+           f"{flat_s:.2f} s): {moved} of {IVF_QUERIES} rows differ, all within "
+           f"{IVF_FLAT_TIE} of the k-th score (one scoring)" if off == 0 else
+           f"exhaustive probe vs flat: {off} rows differ past ties")
+    check(off == 0, f"exhaustive probe: {off} rows differ from the flat index past ties")
+    times = []
+    for b in IVF_TIMED_B:
+        flat.search_device(q_dev[:b], K)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: flat.search_device(q_dev[:b], K), IVF_REPS)
+        t0 = time.perf_counter()
+        for _ in range(IVF_REPS):
+            flat.search(q[:b], K)
+        host_ms = (time.perf_counter() - t0) * 1e3 / IVF_REPS
+        times.append(f"B={b} {ms:.3f} ms = {b / ms * 1e3:.0f} QPS (host {host_ms:.3f} ms)")
+    report(f"bf16 flat index, same {IVF_N} rows, for comparison (the direct path at these B, "
+           "ROADMAP Queue 2 #8b; CUDA events over search_device, host over search): "
+           + "; ".join(times))
+    del flat
+    torch.cuda.empty_cache()
+
+    # the kernel against its plain version: every dtype and metric, B and
+    # nprobe; dead slots (the lists' padding and deleted rows); d = 100
+    # on offset views (a 16-byte-aligned f32 one, an 8-byte-off bf16 one)
+    l2 = DeviceIVFIndex.from_vectors(corpus[:IVF_L2_N], nlist=IVF_NLIST, nprobe=8,
+                                     metric="l2", device=dev)
+    dead = np.arange(0, IVF_N, 97)
+    with uncounted(isc, ss):
+        c0 = isc.launches
+        for name, index in (("f32", kept["f32"]), ("bf16", bf16), ("int8", kept["int8"]),
+                            ("l2 f32", l2)):
+            index.mark_deleted(dead[dead < index.size])
+            metrics = ("l2",) if name == "l2 f32" else (
+                ("cosine",) if name == "int8" else ("cosine", "ip"))
+            for metric in metrics:
+                for b in (1, 7, 33):
+                    for nprobe in (1, 8, IVF_NLIST):
+                        errs.append(scan_check(torch, isc, index, q_dev, metric, b, nprobe,
+                                               f"{name} {metric} B={b} nprobe {nprobe}"))
+        for name, off in (("f32", 4), ("bf16", 4)):
+            errs.append(scan_check(torch, isc, kept[name], q_dev, "ip", 7, 8,
+                                   f"{name} d=100 offset {off}", d=100, offset=off))
+        n_checks = isc.launches - c0
+        report(f"ivf_scan = ivf_scan_plain on the card: {n_checks} cases (f32 / bf16 cosine "
+               f"and ip, int8 cosine, l2 on {IVF_L2_N} f32 rows; B 1 / 7 / 33, nprobe 1 / 8 "
+               f"/ {IVF_NLIST}; dead slots; d = 100 offset views), masks equal, max |d| "
+               f"{max(errs):.3g} <= {IVF_TOL}")
+        # timed in turns at B=32, nprobe 8 (the bf16 build)
+        qb, probe, _ = scan_operands(torch, bf16, q_dev[:32], "cosine", 8)
+        width = 8 * bf16.lmax
+        out = torch.empty((32, width), device=dev)
+        args = (qb, probe, bf16.lists, bf16.sqnorm, bf16.valid, "cosine")
+        ops = 2.0 * 32 * width * DIM
+        lists = torch.unique(probe)
+        live = int(bf16.valid[lists].sum())
+        nbytes = (live * (DIM * 2 + 4) + lists.numel() * bf16.lmax + 32 * width * 4
+                  + 32 * DIM * 4)
+        timed = in_turns(lambda: isc.ivf_scan(*args, out=out),
+                         lambda: isc.ivf_scan_plain(*args),
+                         f"ivf_scan bf16 B=32 nprobe 8 (lmax {bf16.lmax}, {lists.numel()} "
+                         f"distinct lists)", ops, "TFLOP/s", nbytes, "of distinct lists")
+    row = {**timed, **bound(ops, H100_BF16_PEAK, nbytes), "library_ms": None,
+           "max_abs_err": max(errs)}
+    report(f"ivf_scan bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {live} live rows of "
+           f"{lists.numel()} distinct lists read once + scores written) = "
+           f"{row['bound_ms'] / row['ms']:.3f} of the kernel's time; yardstick: the plain "
+           "version's gather + bmm (no single library call)")
+    del l2, kept
+    torch.cuda.empty_cache()
+
+    # a store snapshot saved and reloaded on the card answers equal ids
+    store = TorchVectorStore(HashEmbeddings(dim=DIM), dim=DIM, index_type="ivf",
+                             nlist=IVF_NLIST, dtype=torch.bfloat16, device=dev)
+    store.index = DeviceIVFIndex.from_vectors(corpus[:IVF_SNAP_N], nlist=IVF_NLIST, nprobe=8,
+                                              dtype=torch.bfloat16, device=dev)
+    store.index.mark_deleted(np.arange(0, IVF_SNAP_N, 101))
+    t0 = time.perf_counter()
+    save_store(store, tmp / "ivf_snap")
+    back = load_store(tmp / "ivf_snap", HashEmbeddings(dim=DIM), device=dev)
+    snap_s = time.perf_counter() - t0
+    with uncounted(isc, ss):
+        a, b = store.index.search(q, K), back.index.search(q, K)
+    same = np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0])
+    report(f"IVF store snapshot ({IVF_SNAP_N} rows bf16, {store.index.n_deleted} deleted) "
+           f"saved and loaded in {snap_s:.2f} s: ids and scores equal {same}, dtype "
+           f"{back.index.dtype}")
+    check(same and back.index.dtype == torch.bfloat16, "the IVF snapshot answers otherwise")
+    del store, back, corpus_dev, q_dev
+    torch.cuda.empty_cache()
+    report(f"ivf main-path launches (the recall searches): ivf_scan {launches['ivf_scan']}, "
+           f"subtile_select {launches['subtile_select']}")
+    return row, launches
+
+
+def hnsw_corpus(n: int, d: int, queries: int):
+    """``tools/hnsw_bench.py``'s corpus: 256 gaussian centres, rows =
+    centre + 0.3·N(0, 1), queries = rows + 0.05·N(0, 1), all unit."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((256, d)).astype(np.float32)
+    data = centers[rng.integers(0, 256, n)] + 0.3 * rng.standard_normal((n, d)).astype(
+        np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    q = data[rng.integers(0, n, queries)] + 0.05 * rng.standard_normal((queries, d)).astype(
+        np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return data, q
+
+
+def phase_hnsw(torch, dev, tmp: Path) -> None:
+    """The host C++ HNSW engine (no device code) in f32, SQ8 and PQ with
+    refine: build, batch and single-query search, recall against the exact
+    top-k (computed on the card) and a snapshot round trip each."""
+    from rag_arc_tpu_torch.index.hnsw import HNSWIndex
+    from rag_arc_tpu_torch.tools.ivf_oracle import masked_topk, recall
+
+    phase(f"hnsw: {HNSW_N} x {DIM} (tools/hnsw_bench.py's corpus, cut from 100,000: the "
+          f"engine's add is single-threaded), M 32, ef_construction 200, ef {HNSW_EF}, "
+          f"{HNSW_QUERIES} queries; f32, sq8, pq (m {DIM // 8}) + refine")
+    data, q = hnsw_corpus(HNSW_N, DIM, HNSW_QUERIES)
+    exact = masked_topk(torch.from_numpy(data).to(dev), torch.from_numpy(q).to(dev), K)
+    modes = [("f32", {}), ("sq8", {"quantize": True}),
+             ("pq+refine", {"pq_m": DIM // 8, "pq_train_threshold": min(HNSW_N, 4096),
+                            "pq_refine": True})]
+
+    def build(mode):
+        index = HNSWIndex(dim=DIM, metric="cosine", M=32, **mode[1])
+        t0 = time.perf_counter()
+        index.add(data)
+        return index, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modes)) as pool:  # the C++ add holds no GIL
+        built = list(pool.map(build, modes))
+    report(f"three builds, one thread each, concurrently: {time.perf_counter() - t0:.1f} s")
+    for (name, _), (index, build_s) in zip(modes, built):
+        t0 = time.perf_counter()
+        s, ids = index.search(q, K, ef=HNSW_EF)
+        batch_s = time.perf_counter() - t0
+        single = []
+        for i in range(HNSW_SINGLE):
+            t0 = time.perf_counter()
+            index.search(q[i : i + 1], K, ef=HNSW_EF)
+            single.append(time.perf_counter() - t0)
+        single_ms = float(np.median(single)) * 1e3
+        path = tmp / f"{name}.hnsw"
+        index.save(path)
+        back = HNSWIndex.load(path)
+        s2, ids2 = back.search(q, K, ef=HNSW_EF)
+        same = np.array_equal(ids, ids2)
+        st = index.stats()
+        report(f"hnsw {name}: build {build_s:.1f} s ({HNSW_N / build_s:.0f} rows/s), batch "
+               f"{HNSW_QUERIES / batch_s:.0f} QPS, single query p50 {single_ms:.3f} ms "
+               f"({1e3 / single_ms:.0f} QPS; host clock), recall@{K} "
+               f"{recall(ids, exact):.4f}, {st['vector_bytes'] / HNSW_N:.1f} vector bytes a "
+               f"row; snapshot round trip ids equal {same}")
+        check(same, f"hnsw {name}: the snapshot answers other ids")
 
 
 def main() -> int:
@@ -2958,18 +3402,19 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import subtile_select as ss
     from rag_arc_tpu_torch.ops import fused_mips as fm
     from rag_arc_tpu_torch.ops import corpus_stream as cst
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
 
     dev = torch.device("cuda", 0)
     counters = {"subtile_max": Counter(sm), "subtile_max_l2": Counter(sm, "launches_l2"),
                 "subtile_max_i8": Counter(smi8), "subtile_select": Counter(ss),
                 "rope_prep": Counter(rp), "flash_attention": Counter(fa),
                 "subtile_max_piped": Counter(smp), "fused_mips_topk": Counter(fm),
-                "corpus_stream": Counter(cst)}
+                "corpus_stream": Counter(cst), "ivf_scan": Counter(isc)}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     t_all = time.perf_counter()
     try:
         phase_environment(torch)
-        phase_build([sm, smi8, ss, rp, fa, smp, fm, cst])
+        phase_build([sm, smi8, ss, rp, fa, smp, fm, cst, isc])
         kernel, kernel_l2 = phase_kernel(torch, sm, dev)
         kernel_i8 = phase_kernel_i8(torch, smi8, dev)
         kernel_select = phase_select(torch, sm, ss, dev)
@@ -2987,6 +3432,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         l2_launches = phase_index_l2(torch, sm, ss, dev, data)
         phase_index_i8(torch, smi8, ss, dev, data)
+        kernel_ivf, ivf_launches = phase_ivf(torch, isc, ss, dev, tmp)
+        phase_hnsw(torch, dev, tmp)
         e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, ss, dev)
         i8_launches = phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts)
         hybrid_launches = phase_hybrid_retriever(torch, sm, ss, dev, store)
@@ -3006,7 +3453,8 @@ def main() -> int:
         phase_serve_config(torch, dev, tmp, texts)
         serving = {name: counter.read() for name, counter in counters.items()}
         report(f"kernel launches on the serving phases: {serving}")
-        for name in ("subtile_max", "subtile_select", "rope_prep", "flash_attention"):
+        for name in ("subtile_max", "subtile_select", "rope_prep", "flash_attention",
+                     "ivf_scan"):
             check(serving[name] > 0, f"{name} never launched on the serving path")
         del serve_store, qwen3, emb
     except SmokeFailure as exc:
@@ -3033,6 +3481,7 @@ def main() -> int:
          "replaces": "rag_arc_tpu/ops/two_level.py:416 (XLA program, no Pallas)",
          "launches": e2e_launches["subtile_select"],
          "launches_bm25_hybrid": bm25_launches,
+         "launches_ivf": ivf_launches["subtile_select"],
          "launches_hybrid_retriever": hybrid_launches, **kernel_select},
         {"name": "rope_prep", "route": "cuda", "source": src + "rope_prep.cu",
          "replaces": "rag_arc_tpu/ops/rope_prep.py:52",
@@ -3049,6 +3498,10 @@ def main() -> int:
         {"name": "corpus_stream", "route": "cuda", "source": src + "corpus_stream.cu",
          "replaces": "tools/kernel_probe.py:194",
          "launches": probe_launches["corpus_stream"], **kernel_stream},
+        {"name": "ivf_scan", "route": "cuda", "source": src + "ivf_scan.cu",
+         "replaces": "rag_arc_tpu/index/ivf.py:743 (_ivf_search_body's probe gather and "
+                     "scores, :768-812; XLA program, no Pallas)",
+         "launches": ivf_launches["ivf_scan"], **kernel_ivf},
     ]
     for row in rows:  # each kernel's launches on the four serving phases
         row["launches_serving"] = serving[row["name"]]

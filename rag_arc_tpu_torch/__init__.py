@@ -10,7 +10,7 @@ rank fusion, the native loader and its C++ sources).
 
 Ported so far — the dense main path, the int8 index, the reranker, the
 kernel probe, sparse and hybrid retrieval (BM25, RRF, multi-path), MMR,
-and serving and ingest:
+serving and ingest, and IVF and HNSW:
 
   models/     TextEncoder / PackedTextEncoder, CausalLM,
               TorchEncoderEmbeddings, Qwen3LM / Qwen3Embeddings, the Flax
@@ -20,9 +20,12 @@ and serving and ingest:
               two-level select + rescore, rope_prep, flash attention, the
               fused MIPS top-k, the corpus-stream floor, the BM25 device
               programs (doc-major scan, hybrid head matmul + tail slabs,
-              tail-only sort/segment-sum), RRF over positions, MMR (host)
-  index/      DeviceFlatIndex (f32/bf16/int8), Docstore, BlobDocstore,
-              TorchVectorStore (multi_query_search and MMR included),
+              tail-only sort/segment-sum), RRF over positions, MMR (host),
+              k-means, the IVF probe scan
+  index/      DeviceFlatIndex (f32/bf16/int8), DeviceIVFIndex (padded
+              lists, spill, int8 residuals), HNSWIndex (host C++),
+              Docstore, BlobDocstore, TorchVectorStore (index_type flat /
+              ivf / hnsw; multi_query_search and MMR included),
               snapshots, DeviceBM25Index (host / device / hybrid backends,
               the per-query router and the device-query coalescer)
   retrieval/  BaseRetriever, VectorStoreRetriever, BM25Retriever,
@@ -35,11 +38,12 @@ and serving and ingest:
   llm/        LLMBase, FakeLLM, OpenAICompatLLM (stdlib HTTP)
   chunking/   the markdown, token, recursive and semantic splitters
   parsing/    txt/md, docx, xlsx/csv, pptx and html parsers, MultiParser
-  native/     the host C++ BM25 scorer and tokenizer, built with g++ on
-              first use
+  native/     the host C++ BM25 scorer, tokenizer and HNSW engine, built
+              with g++ on first use
   tools/      ingest (python -m rag_arc_tpu_torch.tools.ingest DIR -o OUT),
               kernel_probe, bm25_synth (zipf CSR corpora and query
-              profiles), doc_synth (multi-format document directories)
+              profiles), doc_synth (multi-format document directories),
+              ivf_oracle (recall against a FAISS-defaults IVF)
   utils/      Document, RWLock, stage tracing, TransferPool, rank fusion
 
 Every allocating constructor takes an explicit ``device``.

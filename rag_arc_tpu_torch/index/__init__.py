@@ -1,1 +1,1 @@
-"""Vector indexes and stores, and the BM25 index."""
+"""Vector indexes (flat, IVF, HNSW) and stores, and the BM25 index."""

@@ -1,16 +1,25 @@
-"""Vector-store snapshots (counterpart of ``rag_arc_tpu/index/persistence.py``,
-flat indexes with a JSON docstore).
+"""Vector-store snapshots (counterpart of ``rag_arc_tpu/index/persistence.py``).
 
 The format is the JAX package's ``rag_arc_tpu.store.v1``: a directory with
-``manifest.json``, ``docstore.json`` and ``.npy`` arrays — ``emb.npy``
-(f32 rows, or raw int8 codes), ``scales.npy`` (int8 block scales),
-``valid.npy``, and for a residual sidecar ``res.npy`` / ``res_scales.npy``.
-A snapshot either package writes loads in the other; int8 snapshots
-restore bit-exactly through ``DeviceFlatIndex.restore_rows``. A store on
-the disk-backed ``BlobDocstore`` snapshots its blob and position arrays
-under ``docstore_blob/`` (manifest ``"docstore": "blob"``) instead of
-``docstore.json``, and a loaded blob snapshot reattaches in place. IVF and
-HNSW indexes are not ported yet.
+``manifest.json``, ``docstore.json`` and ``.npy`` arrays, by index kind:
+
+- flat: ``emb.npy`` (f32 rows, or raw int8 codes), ``scales.npy`` (int8
+  block scales), ``valid.npy``, and for a residual sidecar ``res.npy`` /
+  ``res_scales.npy``; int8 snapshots restore bit-exactly through
+  ``DeviceFlatIndex.restore_rows``;
+- ivf: ``centroids.npy``, ``lists.npy`` (f32 rows, or the raw int8
+  residual codes), ``sqnorm.npy`` (squared norms or scales), ``valid.npy``,
+  ``pos.npy`` and ``fill.npy``; the slot maps are rebuilt from ``pos``;
+- hnsw: ``hnsw.bin``, the native engine's own snapshot (vectors, links,
+  deleted flags), with ``hnsw.bin.refine.npz`` for a PQ refine copy.
+
+A snapshot either package writes loads in the other. The port also
+writes the IVF lists' storage dtype as the manifest's ``dtype`` (the JAX
+package writes it for flat indexes only and reloads IVF lists as f32 or
+int8); an IVF snapshot without it reloads as f32. A store on the disk-backed ``BlobDocstore`` snapshots its blob and
+position arrays under ``docstore_blob/`` (manifest ``"docstore": "blob"``)
+instead of ``docstore.json``, and a loaded blob snapshot reattaches in
+place.
 """
 
 from __future__ import annotations
@@ -26,6 +35,9 @@ import torch
 from rag_arc_tpu_torch.models.embeddings import Embeddings
 from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.index.blob_docstore import BlobDocstore
+from rag_arc_tpu_torch.index.flat import DeviceFlatIndex
+from rag_arc_tpu_torch.index.hnsw import HNSWIndex
+from rag_arc_tpu_torch.index.ivf import DeviceIVFIndex
 from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
 
 FORMAT = "rag_arc_tpu.store.v1"
@@ -33,17 +45,7 @@ FORMAT = "rag_arc_tpu.store.v1"
 logger = logging.getLogger(__name__)
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int8: "int8"}
-
-# fields the JAX package's loader reads for every snapshot; a flat store
-# carries their defaults
-_STORE_DEFAULTS = {
-    "index_type": "flat",
-    "nlist": 100,
-    "nprobe": 8,
-    "train_threshold": 100,
-    "ivf_spill": 1,
-    "ivf_spill_cap": 1.25,
-}
+_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
 
 
 def save_store(store: TorchVectorStore, path: str | Path) -> Path:
@@ -70,13 +72,24 @@ def save_store(store: TorchVectorStore, path: str | Path) -> Path:
         "docstore": docstore_kind,
         "format": FORMAT,
         "metric": store.metric,
+        "index_type": store.index_type,
         "dim": store._dim,
-        **_STORE_DEFAULTS,
-        "index_kind": None if index is None else "flat",
+        "nlist": store.nlist,
+        "nprobe": store.nprobe,
+        "train_threshold": store.train_threshold,
+        "index_kind": None if index is None else index.stats()["kind"],
         "kf_mult": store.kf_mult,
+        "ivf_spill": store.ivf_spill,
+        "ivf_spill_cap": store.ivf_spill_cap,
         "embedding": store.embedding.describe(),
     }
-    if index is not None:
+    if isinstance(index, DeviceIVFIndex):
+        _save_ivf(index, path, manifest)
+    elif isinstance(index, HNSWIndex):
+        # the native snapshot carries vectors, links and deleted flags
+        index.save(path / "hnsw.bin")
+        manifest.update(size=index.size, M=index.M, ef_search=index.ef_search)
+    elif isinstance(index, DeviceFlatIndex):
         n = index.size
         manifest["dtype"] = _DTYPE_NAMES[index.dtype]
         if index.quantized:
@@ -96,8 +109,81 @@ def save_store(store: TorchVectorStore, path: str | Path) -> Path:
         if index.refine:
             np.save(path / "res.npy", index.res[:n].cpu().numpy())
             np.save(path / "res_scales.npy", index.res_scale[:n].cpu().numpy())
+    elif index is not None:
+        raise NotImplementedError(
+            f"save_store has no serializer for index kind {type(index).__name__};"
+            " refusing to write a vectorless snapshot"
+        )
     (path / "manifest.json").write_text(json.dumps(manifest), encoding="utf-8")
     return path
+
+
+def _save_ivf(index: DeviceIVFIndex, path: Path, manifest: Dict[str, Any]) -> None:
+    np.save(path / "centroids.npy", index.centroids.cpu().numpy())
+    # int8 lists as raw residual codes (scales in sqnorm.npy): bit-exact
+    np.save(path / "lists.npy", index.lists.cpu().numpy() if index.quantized
+            else index.lists.float().cpu().numpy())
+    np.save(path / "sqnorm.npy", index.sqnorm.cpu().numpy())
+    np.save(path / "valid.npy", index.valid.cpu().numpy())
+    np.save(path / "pos.npy", index.pos.cpu().numpy())
+    np.save(path / "fill.npy", index._fill)
+    manifest.update(
+        size=index.size,
+        lmax=index.lmax,
+        n_deleted=index.n_deleted,
+        quantized=index.quantized,
+        spill=index.spill,
+        spill_cap=index.spill_cap,
+        dtype=_DTYPE_NAMES[index.dtype],
+    )
+
+
+def _load_ivf(path: Path, manifest: Dict[str, Any], dtype: Optional[torch.dtype],
+              device) -> DeviceIVFIndex:
+    """The IVF index of a snapshot, its slot maps rebuilt from ``pos``:
+    spilled rows appear once per copy, occurrence 0 feeding the primary
+    maps and the rest the extra maps (``mark_deleted`` clears every
+    copy)."""
+    nlist = manifest["nlist"]
+    index = DeviceIVFIndex(
+        dim=manifest["dim"], nlist=nlist, nprobe=manifest["nprobe"],
+        metric=manifest["metric"], dtype=dtype or torch.float32,
+        spill=manifest.get("spill", 1),
+        spill_cap=manifest.get("spill_cap", 1.25), device=device,
+    )
+    centroids = np.load(path / "centroids.npy")
+    # a snapshot from a mesh may carry a padded cluster axis
+    index.nlist_pad = centroids.shape[0]
+    cluster_valid = np.zeros(index.nlist_pad, dtype=bool)
+    cluster_valid[:nlist] = True
+    index._centroids_np = centroids[:nlist].astype(np.float32)
+    index.lmax = manifest["lmax"]
+    pos = np.load(path / "pos.npy")
+    index._place(np.load(path / "lists.npy"), np.load(path / "sqnorm.npy"),
+                 np.load(path / "valid.npy"), pos, centroids, cluster_valid)
+    index._fill = np.load(path / "fill.npy")
+    size = index.size = manifest["size"]
+    index.n_deleted = manifest["n_deleted"]
+    cl, sl = np.nonzero(pos >= 0)
+    p = pos[cl, sl]
+    index._pos_cluster = np.full(size, -1, dtype=np.int32)
+    index._pos_slot = np.full(size, -1, dtype=np.int32)
+    if index.spill > 1:
+        index._pos_xcluster = np.full((size, index.spill - 1), -1, dtype=np.int32)
+        index._pos_xslot = np.full((size, index.spill - 1), -1, dtype=np.int32)
+        order = np.argsort(p, kind="stable")
+        ps, cls, sls = p[order], cl[order], sl[order]
+        occ = np.arange(len(ps)) - np.searchsorted(ps, ps, side="left")
+        prim = occ == 0
+        index._pos_cluster[ps[prim]] = cls[prim].astype(np.int32)
+        index._pos_slot[ps[prim]] = sls[prim].astype(np.int32)
+        extra = ~prim
+        index._pos_xcluster[ps[extra], occ[extra] - 1] = cls[extra].astype(np.int32)
+        index._pos_xslot[ps[extra], occ[extra] - 1] = sls[extra].astype(np.int32)
+    else:
+        index._pos_cluster[p] = cl.astype(np.int32)
+        index._pos_slot[p] = sl.astype(np.int32)
+    return index
 
 
 def _check_embedding(spec: Optional[dict], embedding: Embeddings) -> None:
@@ -132,11 +218,9 @@ def load_store(
         raise ValueError(f"unrecognized store snapshot format in {path}")
     blob_backed = manifest.get("docstore") == "blob"
     kind = manifest.get("index_kind")
-    if kind not in ("flat", None):
-        raise NotImplementedError(
-            f"{kind} snapshots are not ported yet (ROADMAP Queue 1 #13)"
-        )
-    saved = {v: k for k, v in _DTYPE_NAMES.items()}.get(manifest.get("dtype"))
+    if kind not in ("flat", "ivf", "hnsw", None):
+        raise ValueError(f"unknown index kind {kind!r} in {path}")
+    saved = _DTYPES.get(manifest.get("dtype"))
     if manifest.get("quantized"):
         if dtype not in (None, torch.int8):
             # raw int8 codes pasted into a float index would score garbage
@@ -147,13 +231,20 @@ def load_store(
         dtype = torch.int8
     elif dtype is None:
         dtype = saved
+    elif kind == "ivf" and dtype == torch.int8:
+        # float lists pasted into int8 storage would score garbage
+        raise ValueError(
+            f"snapshot at {path} stores float IVF lists; load with dtype=None "
+            f"or a float dtype, not {dtype}"
+        )
     _check_embedding(manifest.get("embedding"), embedding)
     store = TorchVectorStore(
         embedding=embedding,
         dim=manifest["dim"],
         metric=manifest["metric"],
-        # capacity from the snapshot: default-capacity growth doubles
-        capacity=max(int(manifest.get("size") or 0), 1024),
+        # capacity from a flat snapshot: default-capacity growth doubles
+        # (an IVF or HNSW snapshot replaces the store's first index)
+        capacity=max(int(manifest.get("size") or 0) if kind == "flat" else 0, 1024),
         dtype=dtype,
         device=device,
         # snapshots without the key were built at the historical kf_mult 4
@@ -161,8 +252,21 @@ def load_store(
         # a blob snapshot reattaches in place: the loaded store reads (and,
         # if mutated, appends) in the snapshot directory
         docstore_path=str(path / "docstore_blob") if blob_backed else None,
+        index_type=manifest.get("index_type", "flat"),
+        nlist=manifest.get("nlist", 100),
+        nprobe=manifest.get("nprobe", 8),
+        ivf_spill=manifest.get("ivf_spill", 1),
+        ivf_spill_cap=manifest.get("ivf_spill_cap", 1.25),
+        train_threshold=manifest.get("train_threshold"),
     )
-    if kind == "flat":
+    if kind == "ivf":
+        store.index = _load_ivf(path, manifest, dtype, device)
+    elif kind == "hnsw":
+        store.index = HNSWIndex.load(
+            path / "hnsw.bin", metric=manifest["metric"],
+            ef_search=manifest.get("ef_search", 64),
+        )
+    elif kind == "flat":
         emb = np.load(path / "emb.npy")
         valid = np.load(path / "valid.npy")
         if emb.size and manifest.get("quantized") and (path / "scales.npy").exists():

@@ -5,13 +5,18 @@
 get_by_ids, the ``similarity_search*`` family, relevance-score
 normalization, ``from_texts``/``from_documents`` and ``as_retriever``.
 
-``TorchVectorStore`` keeps vectors in a ``DeviceFlatIndex`` on the card
-and documents in a host ``Docstore`` (or, with ``docstore_path``, the
-disk-backed ``BlobDocstore``). Deletes tombstone; ``compact()`` reclaims
-space. MMR gathers its candidates' vectors from the index (``take``) and
-selects on the host (``ops/mmr.py``). The batched query path chains the
-encoder forward into the index search on the device: token ids go up,
-one (scores, positions) readback comes down.
+``TorchVectorStore`` keeps vectors in an index chosen by ``index_type``:
+a ``DeviceFlatIndex`` on the card ("flat", and "auto"), a
+``DeviceIVFIndex`` ("ivf": rows stage in a flat index until
+``train_threshold`` of them exist, then k-means trains the lists), or the
+host C++ ``HNSWIndex`` ("hnsw"). Documents live in a host ``Docstore``
+(or, with ``docstore_path``, the disk-backed ``BlobDocstore``). Deletes
+tombstone; ``compact()`` reclaims space. MMR gathers its candidates'
+vectors from the index (``take``) and selects on the host
+(``ops/mmr.py``). On a flat index the batched query path chains the
+encoder forward into the search on the device: token ids go up, one
+(scores, positions) readback comes down; IVF and HNSW take numpy queries
+and answer numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from rag_arc_tpu_torch.utils.locks import RWLock
 from rag_arc_tpu_torch.utils.tracing import get_tracer, stage  # noqa: F401 (re-exported: the store's spans)
 from rag_arc_tpu_torch.index.docstore import Docstore
 from rag_arc_tpu_torch.index.flat import DeviceFlatIndex, normalize_raw, pair_readback
+from rag_arc_tpu_torch.index.ivf import DeviceIVFIndex
 from rag_arc_tpu_torch.ops.mmr import mmr_select
 
 logger = logging.getLogger(__name__)
@@ -221,14 +227,18 @@ class VectorStore(ABC):
 
 
 class TorchVectorStore(VectorStore):
-    """Device-resident vector store over a DeviceFlatIndex (flat only:
-    IVF and HNSW are ROADMAP Queue 1 #13).
+    """Vector store over a flat, IVF or HNSW index (``index_type``).
 
-    ``dtype=torch.int8`` stores block-quantized int8 rows; ``refine``
+    ``dtype=torch.int8`` stores block-quantized int8 rows (flat), int8
+    residual codes (IVF) or selects SQ8 storage (HNSW); ``refine``
     (``"default"``, None, ``"int4"``, ``"int8"``), ``kf_mult`` and
-    ``rescore_i8`` pass through to the index (see ``index/flat.py``).
-    ``docstore_path`` keeps document content on disk in a ``BlobDocstore``
-    there (mmap reads, bounded host RAM) for large corpora."""
+    ``rescore_i8`` pass through to the flat index (see ``index/flat.py``).
+    ``nlist``, ``nprobe``, ``ivf_spill``, ``ivf_spill_cap`` and
+    ``train_threshold`` (default ``max(100, nlist)``) configure IVF;
+    ``hnsw_pq_m`` > 0 selects product-quantized HNSW and
+    ``hnsw_pq_refine`` its SQ8 rescore copy. ``docstore_path`` keeps
+    document content on disk in a ``BlobDocstore`` there (mmap reads,
+    bounded host RAM) for large corpora."""
 
     def __init__(
         self,
@@ -244,7 +254,29 @@ class TorchVectorStore(VectorStore):
         kf_mult: int = 2,
         rescore_i8: bool = True,
         docstore_path: Optional[str] = None,
+        index_type: str = "flat",
+        nlist: int = 100,
+        nprobe: int = 8,
+        ivf_spill: int = 1,
+        ivf_spill_cap: float = 1.25,
+        train_threshold: Optional[int] = None,
+        hnsw_pq_m: int = 0,
+        hnsw_pq_refine: bool = False,
     ):
+        if index_type == "auto":
+            # the JAX package's auto policy: flat. Its rationale is a TPU
+            # measurement (flat beat IVF's best QPS on a clustered 1M
+            # corpus); opt in to 'ivf' or 'hnsw' explicitly
+            index_type = "flat"
+        if index_type not in ("flat", "ivf", "hnsw"):
+            raise ValueError(
+                f"index_type must be 'auto', 'flat', 'ivf' or 'hnsw', "
+                f"got {index_type!r}"
+            )
+        # the IVF index is built mid-add at auto-train time: refuse its
+        # int8 + l2 combination now, not with documents half recorded
+        if index_type == "ivf" and dtype == torch.int8 and metric == "l2":
+            raise ValueError("int8 IVF storage supports cosine/ip, not l2")
         self.embedding = embedding
         self.metric = metric
         self.device = torch.device(device)
@@ -266,19 +298,46 @@ class TorchVectorStore(VectorStore):
         # int8 candidate over-fetch multiplier (search-time knob)
         self.kf_mult = int(kf_mult)
         self.rescore_i8 = bool(rescore_i8)
+        self.index_type = index_type
+        self.nlist = nlist
+        self.nprobe = nprobe
+        self.ivf_spill = int(ivf_spill)
+        self.ivf_spill_cap = float(ivf_spill_cap)
+        # rows accumulate in a flat index until the IVF can be trained
+        self.train_threshold = train_threshold or max(100, nlist)
+        self.hnsw_pq_m = int(hnsw_pq_m)
+        self.hnsw_pq_refine = bool(hnsw_pq_refine)
         self._dim = dim or getattr(embedding, "dim", None)
         if self._dim is not None:
             self._create_index(self._dim)
 
     def _create_index(self, dim: int) -> None:
-        # the residual ladder exists only on int8 storage: an explicitly
-        # requested refine that cannot apply warns, as in the JAX package
-        if self.refine not in ("default", None) and self._dtype != torch.int8:
+        """Lazy index creation at first add: 'flat' and (pre-train) 'ivf'
+        start as a DeviceFlatIndex; 'hnsw' is the host C++ engine."""
+        # the residual ladder exists only on the int8 flat index: an
+        # explicitly requested refine that cannot apply warns
+        if self.refine not in ("default", None) and (
+            self.index_type != "flat" or self._dtype != torch.int8
+        ):
             logger.warning(
-                "refine=%r has no effect on index_type='flat' dtype=%r — the "
-                "residual ladder needs dtype=int8",
-                self.refine, self._dtype,
+                "refine=%r has no effect on index_type=%r dtype=%r — the "
+                "residual ladder needs index_type='flat' and dtype=int8 "
+                "(hnsw recall guard is hnsw_pq_refine)",
+                self.refine, self.index_type, self._dtype,
             )
+        if self.index_type == "hnsw":
+            from rag_arc_tpu_torch.index.hnsw import HNSWIndex
+
+            # dtype=int8 selects SQ8 storage inside the C++ engine
+            self.index = HNSWIndex(
+                dim=dim,
+                metric=self.metric,
+                quantize=self.hnsw_pq_m == 0 and self._dtype == torch.int8,
+                pq_m=self.hnsw_pq_m,
+                pq_refine=self.hnsw_pq_refine,
+            )
+            self._dim = dim
+            return
         self.index = DeviceFlatIndex(
             dim=dim,
             metric=self.metric,
@@ -342,7 +401,47 @@ class TorchVectorStore(VectorStore):
             if stale:
                 self.index.mark_deleted(np.asarray(stale))
             positions = self.index.add(vectors)
-            return self.docstore.add(documents, positions.tolist())
+            # record BEFORE auto-train: training may compact the index,
+            # and the remap must find these rows' positions
+            ids = self.docstore.add(documents, positions.tolist())
+            self._maybe_train_ivf()
+            return ids
+
+    def _maybe_train_ivf(self) -> None:
+        """Convert the staging flat index to IVF once enough rows exist.
+        Positions carry over 1:1, so the docstore mapping holds."""
+        if (
+            self.index_type != "ivf"
+            or not isinstance(self.index, DeviceFlatIndex)
+            or self.index.size < self.train_threshold
+        ):
+            return
+        flat = self.index
+        if flat.n_deleted or flat._gap_rows:
+            # compact first so k-means never trains on tombstoned rows or
+            # int8 block-alignment gap rows; positions remap through the
+            # docstore like any compaction
+            self.docstore.reassign(flat.compact())
+        # compaction leaves the live rows as a contiguous prefix (int8
+        # re-creates at most one tail gap block)
+        n_live = flat.size - flat._gap_rows
+        vectors = flat.emb[:n_live].float()
+        if flat.quantized:
+            # staging rows are int8 codes: dequantize through the rows'
+            # scales (the flat index's sqnorm column in int8 mode), as the
+            # JAX package does
+            vectors = vectors * flat.sqnorm[:n_live, None]
+        logger.info("training IVF (nlist=%d) over %d rows", self.nlist, n_live)
+        self.index = DeviceIVFIndex.from_vectors(
+            vectors.cpu().numpy(),
+            nlist=self.nlist,
+            nprobe=self.nprobe,
+            metric=self.metric,
+            dtype=self._dtype or torch.float32,
+            spill=self.ivf_spill,
+            spill_cap=self.ivf_spill_cap,
+            device=self.device,
+        )
 
     def delete(self, ids: Sequence[str]) -> bool:
         with self._rw.write():
@@ -351,7 +450,8 @@ class TorchVectorStore(VectorStore):
                 return False
             self.index.mark_deleted(np.asarray(freed))
             if (
-                self.index.size > 0
+                hasattr(self.index, "compact")
+                and self.index.size > 0
                 and self.index.n_deleted / self.index.size > self.compact_threshold
             ):
                 self._compact_locked()
@@ -463,11 +563,17 @@ class TorchVectorStore(VectorStore):
         self, queries: List[str], k: int
     ) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
         encode_device = getattr(self.embedding, "encode_device", None)
+        search_device = getattr(self.index, "search_device", None)
         tokenizer = getattr(self.embedding, "tokenizer", None)
-        if encode_device is None or tokenizer is None:
-            # host embedder: enqueue the device search now, defer readback
-            vecs = self.embedding.encode(queries)
-            return self.index.search_dispatch(np.asarray(vecs), k)
+        if encode_device is None or search_device is None or tokenizer is None:
+            vecs = np.asarray(self.embedding.encode(queries))
+            dispatch = getattr(self.index, "search_dispatch", None)
+            if dispatch is not None:
+                # host embedder, flat index: enqueue the device search
+                # now, defer the readback
+                return dispatch(vecs, k)
+            out = self.index.search(vecs, k)  # IVF / HNSW: numpy in and out
+            return lambda: out
 
         # chained hot path, three host<->device events: upload (ids, mask),
         # encode -> search on the device, one readback of (scores, positions)
@@ -491,7 +597,7 @@ class TorchVectorStore(VectorStore):
             ids_dev = torch.from_numpy(ids).to(self.device)
             mask_dev = torch.from_numpy(mask).to(self.device)
             q_dev = encode_device(ids_dev, mask_dev)
-            s_dev, p_dev = self.index.search_device(q_dev, k_eff)
+            s_dev, p_dev = search_device(q_dev, k_eff)
         # under an active TransferPool the pair rides the stream's one flush
         readback = pair_readback(s_dev, p_dev)
 

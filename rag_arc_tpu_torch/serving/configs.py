@@ -153,11 +153,6 @@ class DenseRetrieverConfig(AbstractConfig):
     def build(self, device: str = "cuda", **_: Any):
         from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
 
-        if self.index_type != "flat":
-            raise NotImplementedError(
-                f"index_type={self.index_type!r} is not ported yet "
-                "(ROADMAP Queue 1 [#13])"
-            )
         embedding = self.embeddings.build(device=device)
         dtype = _torch_dtype(self.dtype)
         if self.store_path:
@@ -173,6 +168,10 @@ class DenseRetrieverConfig(AbstractConfig):
                 dtype=dtype,
                 refine=(None if self.refine in (None, "none") else self.refine),
                 device=device,
+                index_type=self.index_type,
+                nlist=self.nlist,
+                nprobe=self.nprobe,
+                hnsw_pq_m=self.hnsw_pq_m,
             )
         return store.as_retriever(
             search_type=self.search_type, search_kwargs={"k": self.k}

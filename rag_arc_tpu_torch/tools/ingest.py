@@ -11,8 +11,11 @@ Snapshots are the JAX package's formats: either package serves the other's.
 
 ``--embedder torch`` is the 768×12 ``TorchEncoderEmbeddings`` (the JAX
 package's ``flax``); ``--device`` (default ``cuda``) places the index and
-the encoder. IVF/HNSW indexes and the VLM OCR parsers are not ported yet
-and raise.
+the encoder. ``--index-type ivf`` stages rows in a flat index until
+``max(100, nlist)`` exist, then trains ``--nlist`` lists (searched at
+nprobe 8); ``--index-type hnsw`` builds the host C++ graph
+(``--dtype int8`` selects its SQ8 storage). The VLM OCR parsers are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -100,16 +103,13 @@ def ingest(
     dtype: Optional[str] = None,
     metric: str = "cosine",
     batch: int = 256,
+    nlist: int = 100,
     *,
     device: str = "cuda",
 ) -> dict:
     """Ingest ``input_path`` into snapshots under ``output_dir``. Returns
     the JAX package's counts plus ``stages_s``: seconds spent parsing,
     chunking, embedding, adding to the index, saving and building BM25."""
-    if index_type != "flat":
-        raise NotImplementedError(
-            f"index_type={index_type!r} is not ported yet (ROADMAP Queue 1 [#13])"
-        )
     t0 = time.time()
     embeddings = _TimedEmbeddings(build_embedder(embedder, dim, device))
     splitter = build_chunker(chunker, chunk_size, overlap, embeddings.inner)
@@ -156,6 +156,8 @@ def ingest(
         if blob_docstore
         else None,
         device=device,
+        index_type=index_type,
+        nlist=nlist,
     )
     t = time.perf_counter()
     # batched adds: bounds peak embed memory and gives progress on big runs
@@ -202,6 +204,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     choices=["hash", "torch"])
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--index-type", default="flat", choices=["flat", "ivf", "hnsw"])
+    ap.add_argument("--nlist", type=int, default=100, help="IVF lists")
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16", "int8"],
                     help="index storage dtype (default: the store's default)")
@@ -233,6 +236,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         dtype=args.dtype,
         metric=args.metric,
         batch=args.batch,
+        nlist=args.nlist,
         device=args.device,
     )
     for key, value in stats.items():

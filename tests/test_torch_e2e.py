@@ -186,7 +186,12 @@ def test_port_imports_without_jax():
                      "rag_arc_tpu_torch.parsing.pptx_parser",
                      "rag_arc_tpu_torch.parsing.html_parser",
                      "rag_arc_tpu_torch.parsing.multi",
-                     "rag_arc_tpu_torch.tools.ingest"):
+                     "rag_arc_tpu_torch.tools.ingest",
+                     "rag_arc_tpu_torch.ops.kmeans",
+                     "rag_arc_tpu_torch.ops.ivf_scan",
+                     "rag_arc_tpu_torch.index.ivf",
+                     "rag_arc_tpu_torch.index.hnsw",
+                     "rag_arc_tpu_torch.tools.ivf_oracle"):
             assert name in names, name
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax")))
         assert not bad, bad

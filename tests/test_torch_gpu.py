@@ -1183,3 +1183,138 @@ def test_blob_store_round_trips_on_the_card(cuda, tmp_path):
         assert got[0][0][0].metadata == {"i": 5}
     mmr = loaded.max_marginal_relevance_search(texts[7], k=3, fetch_k=10)
     assert mmr[0].id == "d7" and len({d.id for d in mmr}) == 3
+
+
+# -- IVF: the probe scan, k-means and the stores -----------------------------------
+
+
+def _scan_case(cuda, dtype, b, nprobe, nlist=12, lmax=77, d=768, offset=0, seed=0):
+    """Lists with dead slots (a ragged Lmax, optionally a view ``offset``
+    elements into wider rows) and random probes."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn((nlist, lmax, d + offset), generator=g, device=cuda)
+    lists = (base * 40).clamp(-127, 127).to(torch.int8) if dtype == torch.int8 \
+        else base.to(dtype)
+    lists = lists[:, :, offset:]
+    sqnorm = torch.rand((nlist, lmax), generator=g, device=cuda)
+    valid = torch.rand((nlist, lmax), generator=g, device=cuda) > 0.15
+    q = torch.randn((b, d), generator=g, device=cuda)
+    probe = torch.argsort(torch.rand((b, nlist), generator=g, device=cuda), dim=1)[:, :nprobe]
+    cross = torch.randn((b, nlist), generator=g, device=cuda) if dtype == torch.int8 else None
+    return q, probe, lists, sqnorm, valid, cross
+
+
+@pytest.mark.parametrize("dtype,metric", [(torch.float32, "cosine"), (torch.float32, "l2"),
+                                          (torch.bfloat16, "ip"), (torch.bfloat16, "l2"),
+                                          (torch.int8, "cosine")])
+@pytest.mark.parametrize("b,nprobe", [(1, 1), (7, 5), (33, 12)])
+@pytest.mark.parametrize("d,offset", [(768, 0), (100, 0), (100, 3)])
+def test_ivf_scan_matches_plain(cuda, dtype, metric, b, nprobe, d, offset):
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, cross = _scan_case(cuda, dtype, b, nprobe, d=d,
+                                                       offset=offset)
+    before = isc.launches
+    got = isc.ivf_scan(q, probe, lists, sqnorm, valid, metric, cross)
+    torch.cuda.synchronize()
+    assert isc.launches == before + 1
+    want = isc.ivf_scan_plain(q, probe, lists, sqnorm, valid, metric, cross)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    live = torch.isfinite(want)
+    # f32 sums in another order over up to d products of magnitude <= ~4e3
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=2e-3)
+
+
+def test_ivf_scan_writes_into_a_wider_buffer_and_refuses(cuda):
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, _ = _scan_case(cuda, torch.bfloat16, 4, 3)
+    n = 3 * lists.shape[1]
+    buf = torch.full((4, n + 100), 7.0, device=cuda)
+    isc.ivf_scan(q, probe, lists, sqnorm, valid, "ip", out=buf[:, :n])
+    torch.testing.assert_close(buf[:, :n], isc.ivf_scan_plain(q, probe, lists, sqnorm,
+                                                              valid, "ip"), rtol=1e-5,
+                               atol=1e-3)
+    assert bool((buf[:, n:] == 7.0).all())
+    strided = torch.zeros((*lists.shape[:2], 2 * lists.shape[2]), dtype=lists.dtype,
+                          device=cuda)[:, :, ::2]
+    with pytest.raises(ValueError, match="dense last axis"):
+        isc.ivf_scan(q, probe, strided, sqnorm, valid, "ip")
+    with pytest.raises(ValueError, match="cross"):
+        isc.ivf_scan(q, probe, lists.to(torch.int8), sqnorm, valid, "ip")
+
+
+def test_kmeans_and_int8_cross_stay_f32_with_tf32_on(cuda):
+    from rag_arc_tpu_torch.index.ivf import DeviceIVFIndex
+    from rag_arc_tpu_torch.ops.kmeans import kmeans
+
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((8, 64)).astype(np.float32) * 3
+    data = np.concatenate([c + 0.05 * rng.standard_normal((60, 64)).astype(np.float32)
+                           for c in centers])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got_c, got_a = kmeans(data, 8, seed=1, device=cuda)
+        want_c, want_a = kmeans(data, 8, seed=1, device="cpu")
+        assert torch.backends.cuda.matmul.allow_tf32  # the caller's setting is back
+        np.testing.assert_array_equal(got_a, want_a)
+        np.testing.assert_allclose(got_c, want_c, rtol=0, atol=1e-5)
+        ivf = DeviceIVFIndex.from_vectors(data, nlist=8, nprobe=8, dtype=torch.int8,
+                                          device=cuda)
+        cpu = DeviceIVFIndex.from_vectors(data, nlist=8, nprobe=8, dtype=torch.int8,
+                                          device="cpu")
+        gs, gp = ivf.search(data[::13], 5)
+        cs, cp = cpu.search(data[::13], 5)
+        np.testing.assert_allclose(gs, cs, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(gp[:, 0], cp[:, 0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("spill", [1, 2])
+def test_ivf_search_equals_all_plain_pipeline(cuda, dtype, spill):
+    from rag_arc_tpu_torch.index.ivf import DeviceIVFIndex
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+    from rag_arc_tpu_torch.ops import subtile_select as ss
+
+    rng = np.random.default_rng(spill)
+    data = rng.standard_normal((5000, 96)).astype(np.float32)
+    ivf = DeviceIVFIndex.from_vectors(data, nlist=16, nprobe=4, dtype=dtype, spill=spill,
+                                      device=cuda)
+    ivf.mark_deleted(np.arange(0, 5000, 11))
+    q = torch.from_numpy(rng.standard_normal((33, 96)).astype(np.float32)).to(cuda)
+    for nprobe in (1, 4, 16):
+        scans, selects = isc.launches, ss.launches
+        s, p = ivf.search_sub(q, 10, nprobe)
+        torch.cuda.synchronize()
+        assert isc.launches == scans + 1 and ss.launches == selects + 1
+        ws, wp = ivf.search_sub(q, 10, nprobe, plain=True)
+        torch.testing.assert_close(s, ws, rtol=0, atol=1e-4)
+        kth = ws[:, -1:]
+        same = (p == wp) | ((s - kth).abs() <= 1e-4)  # ties at the k-th score
+        assert bool(same.all())
+        assert not bool(torch.isin(p, torch.arange(0, 5000, 11, device=cuda)).any())
+
+
+@pytest.mark.parametrize("index_type", ["ivf", "hnsw"])
+def test_ivf_and_hnsw_stores_end_to_end_on_the_card(cuda, index_type, tmp_path):
+    from rag_arc_tpu_torch.index.persistence import load_store, save_store
+    from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
+    from rag_arc_tpu_torch.models.embeddings import HashEmbeddings
+
+    texts = [f"doc {i} about topic {i % 13} and {i % 7}" for i in range(400)]
+    store = TorchVectorStore(HashEmbeddings(dim=64), index_type=index_type, nlist=16,
+                             nprobe=16, dtype=torch.bfloat16, device=cuda)
+    store.add_texts(texts, ids=[f"d{i}" for i in range(400)])
+    assert store.index.stats()["kind"] == index_type
+    hits = store.batch_similarity_search_with_score(texts[::40], k=5)
+    assert [h[0][0].id for h in hits] == [f"d{i}" for i in range(0, 400, 40)]
+    store.delete(["d40"])
+    assert "d40" not in [d.id for d, _ in store.similarity_search_with_score(texts[40], k=5)]
+    assert len(store.max_marginal_relevance_search(texts[7], k=3, fetch_k=10)) == 3
+    save_store(store, tmp_path / "snap")
+    back = load_store(tmp_path / "snap", HashEmbeddings(dim=64), device=cuda)
+    ids = [[d.id for d, _ in h] for h in back.batch_similarity_search_with_score(texts[:9], k=5)]
+    assert ids == [[d.id for d, _ in h]
+                   for h in store.batch_similarity_search_with_score(texts[:9], k=5)]

@@ -8,7 +8,10 @@
 - ``BlobDocstore`` (a copy) and blob snapshots: a round trip within each
   package and across them in both directions.
 - The chunkers and parsers (copies): output equal to the JAX package's.
-- The port's refusals: ``--index-type ivf|hnsw`` and ``--vlm-url``.
+- ``--index-type ivf|hnsw``: the same directory through both packages
+  gives equal docstores and manifests, and the port's snapshot answers
+  the JAX package's snapshot's ids; the CLI builds both; the port's
+  refusal: ``--vlm-url``.
 """
 
 import json
@@ -109,14 +112,42 @@ def test_ingest_cli_and_refusals(corpus, tmp_path, capsys):
     assert tingest.main([str(corpus), "-o", str(tmp_path / "b"), "--blob-docstore",
                          "--device", "cpu"]) == 0
     assert (tmp_path / "b" / "dense" / "docstore_blob" / "blob.jsonl").exists()
-    for args, match in ((["--index-type", "ivf"], r"\[#13\]"),
-                        (["--index-type", "hnsw"], r"\[#13\]"),
-                        (["--vlm-url", "http://localhost:1"], r"\[#16\]")):
+    # IVF and HNSW build now: --nlist 8 trains the lists past 100 rows
+    for index_type in ("ivf", "hnsw"):
+        assert tingest.main([str(corpus), "-o", str(tmp_path / index_type), "--device",
+                             "cpu", "--index-type", index_type, "--nlist", "8",
+                             "--chunk-size", "120", "--overlap", "10"]) == 0
+        store = tpers.load_store(tmp_path / index_type / "dense", HashEmbeddings(dim=64),
+                                 device="cpu")
+        assert store.index.stats()["kind"] == index_type
+        text = next(iter(store.docstore.items()))[1].content
+        assert store.similarity_search(text, k=1)[0].content == text
+    for args, match in ((["--vlm-url", "http://localhost:1"], r"\[#16\]"),):
         with pytest.raises(NotImplementedError, match=match):
             tingest.main([str(corpus), "-o", str(tmp_path / "x"), "--device", "cpu", *args])
     (tmp_path / "empty").mkdir()
     with pytest.raises(ValueError, match="nothing"):
         tingest.ingest(tmp_path / "empty", tmp_path / "out", device="cpu")
+
+
+@pytest.mark.parametrize("index_type", ["ivf", "hnsw"])
+def test_ivf_hnsw_ingest_matches_jax(monkeypatch, corpus, tmp_path, index_type):
+    want, got = _both(monkeypatch, corpus, tmp_path, chunk_size=120, overlap=10, dim=32,
+                      index_type=index_type)
+    assert got["chunks"] == want["chunks"] > 100  # past the IVF training threshold
+    j, t = tmp_path / "j" / "dense", tmp_path / "t" / "dense"
+    assert json.loads((t / "docstore.json").read_text()) == json.loads(
+        (j / "docstore.json").read_text())
+    jm = json.loads((j / "manifest.json").read_text())
+    tm = json.loads((t / "manifest.json").read_text())
+    assert tm.pop("dtype", "float32") == "float32"  # the port records the IVF dtype
+    assert tm == jm and tm["index_kind"] == index_type
+    jstore = jpers.load_store(j, JaxHash(dim=32))
+    tstore = tpers.load_store(t, HashEmbeddings(dim=32), device="cpu")
+    texts = [d.content for _, d in list(tstore.docstore.items())[:10]]
+    got_ids = [[d.id for d, _ in h] for h in tstore.batch_similarity_search_with_score(texts, k=3)]
+    assert got_ids == [[d.id for d, _ in h]
+                       for h in jstore.batch_similarity_search_with_score(texts, k=3)]
 
 
 def test_ingest_single_file_and_torch_embedder(corpus, tmp_path):

@@ -455,10 +455,20 @@ def test_snapshot_refusals(tmp_path):
     with pytest.raises(ValueError, match="int8 codes"):
         tpers.load_store(tmp_path / "snap", emb, dtype=torch.float32, device="cpu")
     manifest = json.loads((tmp_path / "snap" / "manifest.json").read_text())
-    # blob-docstore snapshots load now (tests/test_torch_ingest.py)
-    for key, value, match in (("index_kind", "ivf", "Queue 1 #13"),
-                              ("index_kind", "hnsw", "Queue 1 #13")):
+    # blob-docstore snapshots load now (tests/test_torch_ingest.py); IVF
+    # and HNSW snapshots load too: an int8 IVF and an SQ8 HNSW store, each
+    # saved by the JAX package, answer in the port with its ids
+    texts = [f"doc {i} topic {i % 5}" for i in range(120)]
+    for index_type in ("ivf", "hnsw"):
+        j = TPUVectorStore(emb, index_type=index_type, nlist=4, dtype=jnp.int8)
+        j.add_texts(texts, ids=[f"d{i}" for i in range(120)])
+        jpers.save_store(j, tmp_path / index_type)
+        t = tpers.load_store(tmp_path / index_type, emb, device="cpu")
+        assert t.index.stats()["kind"] == index_type and t.index.stats()["quantized"]
+        assert _ids(t.batch_similarity_search_with_score(texts[:6], k=3)) == _ids(
+            j.batch_similarity_search_with_score(texts[:6], k=3))
+    for key, value, match in (("index_kind", "annoy", "unknown index kind"),):
         bad = dict(manifest, **{key: value})
         (tmp_path / "snap" / "manifest.json").write_text(json.dumps(bad))
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             tpers.load_store(tmp_path / "snap", emb, device="cpu")

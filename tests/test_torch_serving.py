@@ -10,9 +10,12 @@
   ``/batch`` ids; a ``torch`` snapshot rebuilds its encoder from the
   manifest, a ``flax`` or custom-weight one is refused.
 - Configs: one ``PipelineConfig`` document (hash embeddings, MULTIPATH,
-  REWRITE with FAKE_LLM) built by both registries answers equal ids; the
-  port's refusals (FLAX_EMBEDDINGS, IVF/HNSW, graph, the BM25 mesh
-  backend) and ``device``.
+  REWRITE with FAKE_LLM) built by both registries answers equal ids;
+  DENSE retrievers with ``index_type`` ivf and hnsw answer the JAX
+  package's ids; the port's refusals (FLAX_EMBEDDINGS, graph, the BM25
+  mesh backend) and ``device``.
+- ``--store`` of IVF and HNSW snapshots written by the JAX package's
+  ingest: ``/batch`` ids equal the JAX app's.
 - ``RagPipeline``: warm-up re-raises (the JAX package logs), streamed
   batches equal sequential ones, rerank and rewrite stages.
 - The runtime serving path imports neither pydantic nor bs4.
@@ -364,6 +367,39 @@ def test_jax_hash_snapshot_serves_with_equal_ids(tmp_path):
         tsrv.shutdown()
 
 
+@pytest.mark.parametrize("index_type", ["ivf", "hnsw"])
+def test_jax_ivf_hnsw_snapshots_serve_with_equal_ids(index_type, tmp_path):
+    from rag_arc_tpu.tools.ingest import ingest as jingest
+
+    docs = tmp_path / "docs"
+    docs.mkdir()
+    rng = np.random.default_rng(1)
+    words = [f"w{i}" for i in range(200)]
+    for i in range(24):
+        (docs / f"f{i}.md").write_text(
+            "\n\n".join(" ".join(rng.choice(words, 30)) for _ in range(6)))
+    jingest(docs, tmp_path / "snap", chunk_size=120, overlap=10, dim=32,
+            index_type=index_type)
+    manifest = json.loads((tmp_path / "snap" / "dense" / "manifest.json").read_text())
+    assert manifest["index_kind"] == index_type
+    jpipe = japp._pipeline_from_store(str(tmp_path / "snap"), None, 5)
+    tpipe = tapp._pipeline_from_store(str(tmp_path / "snap"), None, 5, device="cpu")
+    assert tpipe.retriever.vectorstore.index.stats()["kind"] == index_type
+    queries = [" ".join(rng.choice(words, 5)) for _ in range(8)]
+    jsrv, jurl = _serve(jpipe, japp)
+    tsrv, turl = _serve(tpipe, tapp)
+    try:
+        for payload in ({"queries": queries}, {"queries": queries, "response": "ids"}):
+            js, jb = _request(jurl + "/batch", payload)
+            ts, tb = _request(turl + "/batch", payload)
+            assert js == ts == 200
+            assert [[d["id"] for d in r] for r in tb["results"]] == [
+                [d["id"] for d in r] for r in jb["results"]]
+    finally:
+        jsrv.shutdown()
+        tsrv.shutdown()
+
+
 def test_store_rebuilds_torch_embedder_and_refuses_flax(tmp_path):
     from rag_arc_tpu.index.persistence import save_store as jsave
     from rag_arc_tpu.models.encoder import TransformerConfig as FlaxCfg
@@ -450,10 +486,28 @@ def test_config_refusals_and_device():
     with pytest.raises(ValidationError):  # the port cannot rebuild Flax weights
         PipelineConfig.model_validate({"type": "PIPELINE", "retriever": {
             "type": "DENSE", "embeddings": {"type": "FLAX_EMBEDDINGS"}}})
+    from rag_arc_tpu.serving.configs import PipelineConfig as JaxConfig
+    from rag_arc_tpu.utils.data_model import Document as JaxDocument
+
     dense = {"type": "DENSE", "embeddings": {"type": "HASH_EMBEDDINGS", "dim": 8}}
-    for retriever, match in ((dict(dense, index_type="ivf"), r"\[#13\]"),
-                             (dict(dense, index_type="hnsw"), r"\[#13\]"),
-                             ({"type": "BM25", "backend": "device"}, r"\[#15\]")):
+    # IVF (trained past its threshold of 100 rows) and HNSW answer now,
+    # with the JAX package's ids
+    texts = [f"doc {i} about topic {i % 9} and {i % 4}" for i in range(150)]
+    for index_type in ("ivf", "hnsw"):
+        doc = {"type": "PIPELINE", "retriever": dict(dense, index_type=index_type, nlist=8,
+                                                     nprobe=8, k=4)}
+        tpipe = PipelineConfig.model_validate(dict(doc, device="cpu")).build()
+        jpipe = JaxConfig.model_validate(doc).build()
+        tpipe.retriever.add_documents([Document(content=c, id=f"d{i}")
+                                       for i, c in enumerate(texts)])
+        jpipe.retriever.add_documents([JaxDocument(content=c, id=f"d{i}")
+                                       for i, c in enumerate(texts)])
+        assert tpipe.retriever.vectorstore.index.stats()["kind"] == index_type
+        queries = texts[::17]
+        got = [[d.id for d in r] for r in tpipe.query_batch(queries)]
+        assert got == [[d.id for d in r] for r in jpipe.query_batch(queries)]
+        assert all(r[0] == f"d{17 * i}" for i, r in enumerate(got))
+    for retriever, match in (({"type": "BM25", "backend": "device"}, r"\[#15\]"),):
         cfg = PipelineConfig.model_validate(
             {"type": "PIPELINE", "retriever": retriever, "device": "cpu"})
         with pytest.raises(NotImplementedError, match=match):
