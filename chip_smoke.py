@@ -27,7 +27,10 @@ Phases, each printing its own lines and times:
        slot, -0.0 beside +0.0, all-NEG, half-NEG and nearly dead rows) at
        k in {10, 20, 100}: live picks, flags and residuals equal to the
        plain tournament's; timed in turns against it and beside
-       ``torch.topk`` at each k;
+       ``torch.topk`` at each k; then the other shapes the paths send it
+       (dense B = 256 and 160 at k 10 / 100, an int8 search's B 1 / 8 / 32
+       at kf = 20, an IVF dispatch's and a BM25 batch's group maxima),
+       held and timed the same way;
      - ``rope_prep`` at the reranker shape (B = 64, L = 512, nh/nkv 16/8,
        D = 128, bf16, left-padded positions, norm folded in), ragged,
        nh = nkv, D = 64 and f32 cases, with and without ``repeat_kv``;
@@ -101,7 +104,11 @@ Phases, each printing its own lines and times:
        ``ivf_scan`` against its plain version (f32 / bf16 cosine and ip,
        int8, l2 on 2^18 f32 rows; B 1 / 7 / 33, nprobe 1 / 8 / 100; dead
        slots; d = 100 on offset views) and timed in turns at B = 32,
-       nprobe 8 with its bound; an IVF store snapshot round trip;
+       nprobe 8 with its bound, then alone at B 1 / 8 / 32 / 256 x nprobe
+       8 / 32 beside its bound; the kernels ``torch.profiler`` sees in one
+       ``search_sub`` at B = 1 and 32, and its time, in a process of its
+       own (``tools/kernel_ab.py --search``); an IVF store snapshot round
+       trip;
      - hnsw: ``tools/hnsw_bench.py``'s corpus cut to 6,144 x 768 (the host
        engine's add is single-threaded), f32, SQ8 and PQ + refine
        built concurrently: build s, batch and single-query QPS, recall@10
@@ -145,6 +152,8 @@ Phases, each printing its own lines and times:
        top 10 (>= 0.99), ``/batch`` ids equal ``query_batch``'s,
        ``response=ids`` carries the ``full`` ids, ``/add`` then ``/delete``
        changes the answers, and the blob snapshot answers as the JSON one;
+       an IVF snapshot's dispatches (counted by the phase) equal its
+       ``ivf_scan`` and select launches;
      - serve_2m: ``tools/serving_bench.py``'s configuration (2M x 768 bf16,
        the index phase's rows, documents in a ``BlobDocstore``, queries
        encoded on the card and chained into the search,
@@ -162,11 +171,21 @@ Phases, each printing its own lines and times:
      - serve_rerank: serve_2m's retriever with the Qwen3 cross-encoder
        (recall 50, top 10) behind the app, 4 requests of 8 queries: each
        answer a sorted subset of the retrieved 50 in ``rerank_batch``'s
-       order, ``rope_prep`` and ``flash_attention`` 28 launches a forward;
+       order, ``rope_prep`` and ``flash_attention`` exactly 28 launches for
+       each forward the phase counts;
      - serve_config: a ``PipelineConfig`` document (MULTIPATH over
        ``TORCH_EMBEDDINGS`` 768 x 12 and BM25, REWRITE with FAKE_LLM)
        through ``Register``, 64 queries over HTTP; then a DENSE config with
-       ``index_type: "ivf"`` (nlist 64) over the same 4,096 documents.
+       ``index_type: "ivf"`` (nlist 64) over the same 4,096 documents,
+       one scan and one select launch for each dispatch.
+
+With ``--parent DIR`` (a tree of an earlier commit, e.g. unpacked by
+``git archive``), the select and ivf phases also time that tree's
+``subtile_select.cu`` and ``ivf_scan.cu`` in turns beside these
+(``tools/kernel_ab.py``; each pair held to agree), the bf16 index phase
+its B=512 search and sustained QPS with that tree's select in this one's
+place, and the ivf phase its ``search_sub`` (kernels and ms) in turns
+with this tree's, each in a process of its own.
 
 Every check that fails ends the run with a non-zero exit; a serving phase
 fails on any response other than 200 and on any client error. Without a
@@ -187,6 +206,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+# the card's peak rates, the bound and CUDA-event timing: one copy, the
+# kernel A/B tool's
+from rag_arc_tpu_torch.tools.kernel_ab import (H100_BF16_PEAK, H100_F32_PEAK, H100_INT8_PEAK,
+                                               bound, cuda_ms)
 
 SEED = 0
 K = 10
@@ -209,6 +233,11 @@ I8_CASES = [(True, 1), (True, 7), (True, 128), (True, 512), (False, 64)]  # (blo
 I8_EDGES = [(True, 130, 262_144, 768, 256, 0), (False, 130, 262_144, 768, 128, 0),
             (True, 33, 65_536, 100, 16, 3), (False, 7, 65_536, 100, 32, 5)]
 SELECT_KS = (10, 20, 100)  # select timings and checks; int8 searches at kf = 20
+# the select's other dense batches: 256, as the text path pads a coalesced
+# serving batch of 129-256 queries; 160, a batch of vectors searched as it
+# comes (DeviceFlatIndex.search pads nothing)
+SELECT_MORE_B = (256, 160)
+SELECT_MORE_KS = (10, 100)
 TIMING_N = 2_000_000
 CORPUS_N = 2_000_000
 BATCH = 512
@@ -240,10 +269,6 @@ BM25_DEVICE_N = 262_144  # the doc-major backend's parity corpus
 MULTI_K_PATH = 50
 RRF_K = 60
 HYBRID_QUERIES = 512
-H100_BF16_PEAK = 989e12  # dense bf16 FLOP/s, NVIDIA's data sheet (SXM, 700 W)
-H100_INT8_PEAK = 1979e12  # dense int8 OP/s, the same sheet
-H100_F32_PEAK = 67e12  # f32 FLOP/s outside the tensor cores, the same sheet
-H100_HBM = 3.35e12  # HBM3 bytes/s, the same sheet
 # the kernel probe's kernels: the pipelined producer, the fused top-k
 # (tile_n 2048 as the probe's fused config) and the corpus stream
 PIPED_CASES = [("bf16", 1), ("bf16", 7), ("bf16", 512), ("f32", 64), ("int8", 7),
@@ -337,6 +362,8 @@ IVF_NPROBES = (1, 2, 4, 8, 16, 32)
 IVF_BUILDS = (("f32", 1), ("bf16", 1), ("bf16", 2), ("int8", 1))
 IVF_TIMED_B = (1, 8, 32)
 IVF_TIMED_NPROBES = (8, 16, 32)
+IVF_SCAN_B = (1, 8, 32, 256)  # ivf_scan alone, each with its bound
+IVF_SCAN_NPROBES = (8, 32)
 IVF_REPS = 5
 IVF_PLAIN_B = 64  # queries a dispatch of the all-plain pipeline
 IVF_L2_N = 1 << 18  # the l2 build's rows
@@ -352,6 +379,7 @@ HNSW_SINGLE = 64
 
 CARD = ""
 ROOT = Path(__file__).resolve().parent
+PARENT: Path | None = None  # --parent: another tree whose scan and select are timed in turns
 
 
 class SmokeFailure(Exception):
@@ -372,19 +400,6 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call over ``reps`` calls (CUDA events)."""
-    import torch
-
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def in_turns(kernel, plain, name: str, ops: float, unit: str, nbytes: float,
              bytes_label: str = "of corpus") -> dict:
     """Time kernel and plain version in turns (plain, kernel, kernel,
@@ -400,15 +415,6 @@ def in_turns(kernel, plain, name: str, ops: float, unit: str, nbytes: float,
            f"{ops / kernel_ms / 1e9:.1f} {unit}, {nbytes / kernel_ms / 1e6:.1f} GB/s "
            f"{bytes_label}")
     return {"ms": kernel_ms, "plain_ms": plain_ms}
-
-
-def bound(ops: float, peak: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the peak rate for their type and the bytes (each input read once,
-    each output written once) over the HBM rate."""
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_HBM * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def library_ms(fn, name: str) -> float:
@@ -735,7 +741,10 @@ def tie_slab(b: int, c: int, k: int, seed: int) -> np.ndarray:
 def phase_select(torch, sm, ss, dev) -> dict:
     """The select kernel against the plain tournament on a real slab (a
     B=512 batch's sub-tile maxima over 2M rows) and a constructed one,
-    then timed in turns against it and beside torch.topk."""
+    then timed in turns against it and beside torch.topk, and at the other
+    shapes the paths send it."""
+    from rag_arc_tpu_torch.tools import kernel_ab as ab
+
     n = TIMING_N - TIMING_N % G
     c = n // G
     phase(f"kernel against its plain version: subtile_select, B={BATCH} C={c}, "
@@ -782,11 +791,44 @@ def phase_select(torch, sm, ss, dev) -> dict:
         out[k] = {**timed, **bound(BATCH * c, H100_F32_PEAK, nbytes), "library_ms": lib_ms}
     report(f"select, in turns on the real slab: " + "; ".join(times)
            + f"; bound {out[10]['bound_ms']:.3f} ms (k=10, bytes)")
+    # the other shapes the paths send: dense batches of 256 and 160, and the
+    # int8, IVF and BM25 paths' (the slab's front columns)
+    shapes = [(f"dense B={b}", b, c, k) for b in SELECT_MORE_B for k in SELECT_MORE_KS]
+    shapes += [(f"{what} B={b}", b, cc, k) for what, b, cc, k in ab.SELECT_PATHS]
+    more = {}
+    for what, b, cc, k in shapes:
+        x = real[:b, :cc].contiguous()
+        got = ss.iterative_argmax_resid(x, k)
+        torch.cuda.synchronize()
+        check(select_equal(torch, got, ss.iterative_argmax_resid_plain(x, k), cc),
+              f"subtile_select differs from its plain version ({what}, C={cc}, k={k})")
+        t = in_turns(lambda x=x, k=k: ss.iterative_argmax_resid(x, k),
+                     lambda x=x, k=k: ss.iterative_argmax_resid_plain(x, k),
+                     f"select {what} C={cc} k={k}", b * cc, "T entries/s", b * cc * 4,
+                     "of sub-tile maxima")
+        more[f"{what} C={cc} k={k}"] = {**t, **bound(b * cc, H100_F32_PEAK, b * cc * 4)}
+    report("select at the paths' other shapes, equal to the plain tournament: " + "; ".join(
+        f"{name} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, bytes)" for name, t in more.items()))
+    # what holds it: a row's time with one block an SM (B=132) against two
+    # (B=264), and a slab whose rows keep few live entries (deep shrinks)
+    waves = {bb: cuda_ms(lambda bb=bb: ss.iterative_argmax_resid(real[:bb], 10), 10)
+             for bb in (132, 264)}
+    sparse = torch.full_like(real, ss.NEG)
+    sparse[:, ::1000] = real[:, ::1000]
+    sparse_ms = cuda_ms(lambda: ss.iterative_argmax_resid(sparse, 10), 10)
+    report(f"select k=10 (CUDA events, mean of 10): B=132 (one "
+           f"block an SM) {waves[132]:.3f} ms, B=264 (two) {waves[264]:.3f} ms; B={BATCH} on a "
+           f"slab live only every 1000th entry {sparse_ms:.3f} ms")
+    del sparse
+    if PARENT is not None:
+        rows = ab.ab_select(ab.OtherKernels(PARENT), real, CARD)
+        check(all(r["equal"] for r in rows), "the parent's select and this one's disagree")
     del real
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, **out[10],
             "k20_ms": out[20]["ms"], "k100_ms": out[100]["ms"],
-            "k20_plain_ms": out[20]["plain_ms"], "k100_plain_ms": out[100]["plain_ms"]}
+            "k20_plain_ms": out[20]["plain_ms"], "k100_plain_ms": out[100]["plain_ms"],
+            "other_shapes_ms": {name: t["ms"] for name, t in more.items()}}
 
 
 def phase_kernel_piped(torch, sm, smi8, smp, dev) -> dict:
@@ -1289,7 +1331,7 @@ def uncounted(*modules):
     """Launches inside do not count: a serving phase's timing and reference
     calls, made while no request is being served. Each module's counts are
     put back as they were on the way out."""
-    names = ("launches", "launches_l2")
+    names = ("launches", "launches_l2", "launches_plan")
     saved = [(m, n, getattr(m, n)) for m in modules for n in names if hasattr(m, n)]
     try:
         yield
@@ -1347,6 +1389,13 @@ def phase_index(torch, sm, ss, dev, data):
     }, sub, min(K, sub.shape[1]))
     del sub
     pooled_passes(torch, index, batches)
+    if PARENT is not None:
+        from rag_arc_tpu_torch.tools import kernel_ab as ab
+
+        # the B=512 search and sustained QPS with the parent's select in
+        # this one's place, in turns (parent, this, this, parent)
+        row = ab.ab_dense(ab.OtherKernels(PARENT), index, batches, CARD)
+        check(row["equal"], "the dense search's positions differ with the parent's select")
     torch.cuda.empty_cache()
     return index
 
@@ -2564,6 +2613,9 @@ def serve_snapshot_checks(torch, snap: Path, dev, rows: list[dict]):
     """Serve one ingest snapshot through the app's --store path and check
     every endpoint; returns the /batch results (full) of the chunk texts.
     A chunk is found by its (source, text): the two snapshots' ids differ."""
+    from rag_arc_tpu_torch.index.ivf import DeviceIVFIndex
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+    from rag_arc_tpu_torch.ops import subtile_select as ss
     from rag_arc_tpu_torch.serving.app import _pipeline_from_store
 
     t0 = time.perf_counter()
@@ -2571,7 +2623,11 @@ def serve_snapshot_checks(torch, snap: Path, dev, rows: list[dict]):
     pipe.warmup()
     setup_s = time.perf_counter() - t0
     texts = [r["content"] for r in rows]
-    with served(pipe) as port:
+    index = getattr(getattr(pipe.retriever, "vectorstore", None), "index", None)
+    ivf = isinstance(index, DeviceIVFIndex)
+    before = (isc.launches, ss.launches)
+    with Calls(index, "search_sub") if ivf else contextlib.nullcontext() as dispatches, \
+            served(pipe) as port:
         http = _Http(port)
         health = http.get("/health")
         check(health["status"] == "ok", f"/health: {health}")
@@ -2605,6 +2661,13 @@ def serve_snapshot_checks(torch, snap: Path, dev, rows: list[dict]):
         check(added[0] not in [d["id"] for d in gone], "a deleted document still answers")
         stats = http.get("/stats")
         http.close()
+    if ivf:  # the dispatches counted here against the kernels' own counts
+        got_launches = (isc.launches - before[0], ss.launches - before[1])
+        report(f"{snap.name}: {dispatches.n} IVF dispatches served, ivf_scan and "
+               f"subtile_select launched {got_launches} times")
+        check(got_launches == (dispatches.n, dispatches.n) and dispatches.n > 0,
+              f"{snap.name}: {got_launches} scan / select launches for {dispatches.n} "
+              "dispatches")
     report(f"{snap.name} snapshot served (--store, {type(pipe.retriever).__name__}, "
            f"set-up {setup_s:.2f} s incl. warm-up): /health /stats /query /batch /add "
            f"/delete all 200; {len(texts)} chunk texts in one /batch {batch_s * 1e3:.1f} ms "
@@ -2849,7 +2912,7 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
                f"batch_similarity_search_with_score's: {served_ids == direct}")
         check(served_ids == direct, "served ids differ from the direct search's")
         before_load = (sm.launches, ss.launches)
-        qps = {}
+        qps, padded = {}, 0
         for mode in ["ids"] * SERVE_IDS_PASSES + ["full"]:
             before = dict(pipe.batcher.stats)
             pipe.batcher.stats["max_batch_seen"] = 0
@@ -2859,6 +2922,7 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
             qps.setdefault(mode, []).append(out["qps"])
             # the store pads a batch to a power of two before it searches
             two_level = sum((1 << (b - 1).bit_length()) > direct_max for b in sizes)
+            padded += two_level
             report(f"response={mode}: {out['qps']:.1f} QPS ({out['requests']} requests of "
                    f"{SERVE_QPR} in {out['wall_s']:.2f} s, host clock), request p50 "
                    f"{out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms; batcher "
@@ -2868,12 +2932,12 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
                    f"past B={direct_max} (the two-level kernel path), the rest on the direct "
                    f"path")
         pipe.batcher.batch_fn = answer
-        # lower bounds: threads may lose an increment
         launches = (sm.launches - before_load[0], ss.launches - before_load[1])
         spread = (max(qps["ids"]) - min(qps["ids"])) / min(qps["ids"])
         report(f"the {SERVE_IDS_PASSES} ids passes within {100 * spread:.1f}% of the lowest "
                f"({'within' if spread <= 0.10 else 'NOT within'} 10%); kernel launches over "
-               f"the load: subtile_max {launches[0]}, subtile_select {launches[1]}")
+               f"the load: subtile_max {launches[0]}, subtile_select {launches[1]}, against "
+               f"{padded} batches padded past B={direct_max} (reported, not held)")
         check(min(launches) > 0, "the served traffic never reached the kernels")
         stats = http.get("/stats")
         http.close()
@@ -2918,20 +2982,22 @@ def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
     pipe.warmup(batch_sizes=(SERVE_RERANK_QPR,))
     rng = np.random.default_rng(SEED + 9)
     times, forwards = [], []
-    with served(pipe) as port:
+    with served(pipe) as port, Calls(model, "hidden") as calls:
         http = _Http(port)
         for r in range(SERVE_RERANK_REQUESTS):
             queries = [f"rerank request {r} query {j} doc {rng.integers(CORPUS_N)}"
                        for j in range(SERVE_RERANK_QPR)]
-            before = (rp.launches, fa.launches)
+            before = (rp.launches, fa.launches, calls.n)
             t0 = time.perf_counter()
             out = http.post("/batch", {"queries": queries, "k": K})["results"]
             times.append((time.perf_counter() - t0) * 1e3)
+            # the forwards the model ran for this request, counted here
+            n_fwd = calls.n - before[2]
             launches = (rp.launches - before[0], fa.launches - before[1])
-            check(launches[0] == launches[1] and launches[0] > 0 and launches[0] % layers == 0,
-                  f"request {r}: rope_prep / flash_attention launched {launches} times, "
-                  f"not {layers} a forward")
-            forwards.append(launches[0] // layers)
+            check(n_fwd > 0 and launches == (layers * n_fwd, layers * n_fwd),
+                  f"request {r}: rope_prep / flash_attention launched {launches} times for "
+                  f"{n_fwd} forwards, not {layers} each a forward")
+            forwards.append(n_fwd)
             with uncounted(rp, fa):
                 cands = retriever.invoke_batch(queries, k=RERANK_CANDIDATES)
                 want = rr.rerank_batch(queries, cands, k=K)
@@ -2958,6 +3024,8 @@ def phase_serve_config(torch, dev, tmp: Path, texts: list[str]) -> None:
     registry, served over HTTP."""
     from rag_arc_tpu_torch.framework.registry import Register
     from rag_arc_tpu_torch.index.vector_store import Document
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+    from rag_arc_tpu_torch.ops import subtile_select as ss
     from rag_arc_tpu_torch.serving.configs import PipelineConfig
 
     doc = {
@@ -3024,17 +3092,23 @@ def phase_serve_config(torch, dev, tmp: Path, texts: list[str]) -> None:
     build_s = time.perf_counter() - t0
     st = pipe.retriever.vectorstore.index.stats()
     check(st["kind"] == "ivf" and st["device"] == str(dev), f"the IVF config built {st}")
-    with served(pipe) as port:
+    before = (isc.launches, ss.launches)
+    with Calls(pipe.retriever.vectorstore.index, "search_sub") as dispatches, \
+            served(pipe) as port:
         http = _Http(port)
         t0 = time.perf_counter()
         got = batch_ids(http.post("/batch", {"queries": queries}))
         ms = (time.perf_counter() - t0) * 1e3
         http.close()
+    scans = (isc.launches - before[0], ss.launches - before[1])
+    check(scans == (dispatches.n, dispatches.n) and dispatches.n > 0,
+          f"IVF config: {scans} scan / select launches for {dispatches.n} dispatches")
     found = sum(f"d{i}" in ids for i, ids in enumerate(got))
     report(f"IVF config (DENSE, index_type ivf, nlist {SERVE_CONFIG_NLIST}, bf16): built, "
            f"filled (trained at {st['size']} rows, lmax {st['lmax']}) and warmed in "
            f"{build_s:.2f} s; {len(queries)} queries in one /batch {ms:.1f} ms (host clock); "
-           f"source in the top {K}: {found}/{len(queries)}")
+           f"source in the top {K}: {found}/{len(queries)}; {dispatches.n} dispatches, "
+           f"ivf_scan and subtile_select {scans} launches")
     check(found >= 0.99 * len(queries), f"IVF config: only {found}/{len(queries)} found")
     Register().clear()
 
@@ -3103,6 +3177,73 @@ def scan_check(torch, isc, index, q_dev, metric: str, b: int, nprobe: int, what:
     return err
 
 
+def scan_grid(torch, isc, index, q_dev) -> dict:
+    """ivf_scan alone on ``index`` at B in IVF_SCAN_B x nprobe in
+    IVF_SCAN_NPROBES: mean ms (CUDA events; the wrapper's host work and its
+    plan and gather launches included), device ms (the host ahead:
+    ``kernel_ab.queued_ms``) beside its bound, and the path the schedule
+    took."""
+    from rag_arc_tpu_torch.tools import kernel_ab as ab
+
+    grid, parts = {}, []
+    for b in IVF_SCAN_B:
+        for nprobe in IVF_SCAN_NPROBES:
+            q, probe = ab.scan_operands(index, q_dev[:b], nprobe)
+            out = torch.empty((b, nprobe * index.lmax), device=q_dev.device)
+            args = (q, probe, index.lists, index.sqnorm, index.valid, "cosine")
+            fn = lambda: isc.ivf_scan(*args, out=out)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            ms = cuda_ms(fn, IVF_REPS * 2)
+            dev_ms = ab.queued_ms(fn)
+            ops, nbytes, distinct = ab.scan_bound(index, probe, b)
+            bd = bound(ops, H100_BF16_PEAK, nbytes)
+            path = "wgmma" if isc.scan_schedule(b, nprobe, DIM, index.nlist, True)["tc"] \
+                else "cuda cores"
+            grid[f"{b}x{nprobe}"] = {"ms": ms, "device_ms": dev_ms, **bd, "path": path}
+            parts.append(f"B={b} nprobe {nprobe} {ms:.3f} ms, device {dev_ms:.3f} ({path}), "
+                         f"bound {bd['bound_ms']:.4f} ({distinct} lists), share "
+                         f"{bd['bound_ms'] / dev_ms:.2f}")
+    report("ivf_scan alone, bf16 (CUDA events, mean of 10 with the wrapper's host work; "
+           "device: mean of 20 queued behind a sleep, host work hidden): " + "; ".join(parts))
+    return grid
+
+
+def search_processes() -> dict:
+    """The kernels one search_sub launches (torch.profiler) and its
+    CUDA-event ms at B 1 / 8 / 32, nprobe 8 / 32, on the same 1M x 768
+    bf16 IVF built in a process of its own (``tools/kernel_ab.py
+    --search``: a profiler session late in this long process loses device
+    events). With --parent, that tree's package too, in turns (parent,
+    this, this, parent). Returns this tree's counts."""
+    import os
+
+    trees = [("this", ROOT)]
+    if PARENT is not None:
+        trees = [("parent", PARENT), ("this", ROOT), ("this", ROOT), ("parent", PARENT)]
+    mine = {}
+    for name, tree in trees:
+        env = {**os.environ, "PYTHONPATH": str(tree)}
+        out = subprocess.run([sys.executable, str(ROOT / "rag_arc_tpu_torch" / "tools" /
+                                                  "kernel_ab.py"), "--search"],
+                             env=env, capture_output=True, text=True, timeout=900)
+        rows = [json.loads(ln.split("  [")[0]) for ln in out.stdout.splitlines()
+                if ln.startswith("{")]
+        kernels = {f"{r['search_sub_kernels']['b']}x{r['search_sub_kernels']['nprobe']}":
+                   r["search_sub_kernels"]["kernels"] for r in rows if "search_sub_kernels" in r}
+        times = [f"B={r['b']} nprobe {r['nprobe']} {r['ms']:.3f} (device busy "
+                 f"{r['busy_ms']:.3f} of a {r['span_ms']:.3f} span)" for r in rows
+                 if r.get("kind") == "search_sub_ms"]
+        check(out.returncode == 0 and kernels, f"the {name} tree's search run failed: "
+              f"{out.stderr[-400:]}")
+        report(f"{name} tree's search_sub (a process of its own, the same corpus and build): "
+               f"kernels {kernels} (B x nprobe; torch.profiler, memcpy and memset apart); ms (CUDA events, mean of 20; busy and span from torch.profiler over "
+               f"5 calls): " + ", ".join(times))
+        if name == "this" and not mine:
+            mine = kernels
+    return mine
+
+
 def resident(index) -> int:
     return sum(t.numel() * t.element_size() for t in
                (index.lists, index.sqnorm, index.valid, index.pos, index.centroids))
@@ -3144,7 +3285,7 @@ def phase_ivf(torch, isc, ss, dev, tmp: Path) -> tuple[dict, dict]:
            f"min/mean/max) {time.perf_counter() - t0:.2f} s; oracle recall@{K} (scan "
            "fraction): " + ", ".join(f"nprobe {n} {r:.4f} ({f:.4f})"
                                      for n, (r, f) in curve.items()))
-    launches = {"ivf_scan": 0, "subtile_select": 0}
+    launches = {"ivf_scan": 0, "subtile_select": 0, "ivf_scan_plan": 0}
     kept, errs = {}, []
     for name, spill in IVF_BUILDS:
         dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[name]
@@ -3159,7 +3300,7 @@ def phase_ivf(torch, isc, ss, dev, tmp: Path) -> tuple[dict, dict]:
                f"{st['list_fill_max']}, resident {resident(index) / 1e9:.3f} GB")
         rec, worst = {}, 0
         for nprobe in IVF_NPROBES:
-            c0, s0 = isc.launches, ss.launches
+            c0, s0, p0 = isc.launches, ss.launches, isc.launches_plan
             s, p = index.search(q, K, nprobe=nprobe)
             subs = -(-IVF_QUERIES // index._sub_batch(nprobe))
             dc, ds = isc.launches - c0, ss.launches - s0
@@ -3167,6 +3308,7 @@ def phase_ivf(torch, isc, ss, dev, tmp: Path) -> tuple[dict, dict]:
                   f"{dc} scans and {ds} selects for {subs} dispatches")
             launches["ivf_scan"] += dc
             launches["subtile_select"] += ds
+            launches["ivf_scan_plan"] += isc.launches_plan - p0
             rec[nprobe] = orc.recall(p, exact)
             if spill > 1:
                 check(all(len(set(r.tolist())) == K and (r >= 0).all() for r in p),
@@ -3290,12 +3432,20 @@ def phase_ivf(torch, isc, ss, dev, tmp: Path) -> tuple[dict, dict]:
                          lambda: isc.ivf_scan_plain(*args),
                          f"ivf_scan bf16 B=32 nprobe 8 (lmax {bf16.lmax}, {lists.numel()} "
                          f"distinct lists)", ops, "TFLOP/s", nbytes, "of distinct lists")
+        grid = scan_grid(torch, isc, bf16, q_dev)
+        if PARENT is not None:
+            from rag_arc_tpu_torch.tools import kernel_ab as ab
+
+            rows = ab.ab_scan(ab.OtherKernels(PARENT), bf16, q_dev, CARD)
+            check(all(r["masks_equal"] and r["within_tol"] for r in rows),
+                  f"the parent's ivf_scan and this one's disagree beyond {ab.SCAN_TOL}")
     row = {**timed, **bound(ops, H100_BF16_PEAK, nbytes), "library_ms": None,
-           "max_abs_err": max(errs)}
+           "max_abs_err": max(errs), "grid": grid}
     report(f"ivf_scan bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {live} live rows of "
            f"{lists.numel()} distinct lists read once + scores written) = "
            f"{row['bound_ms'] / row['ms']:.3f} of the kernel's time; yardstick: the plain "
            "version's gather + bmm (no single library call)")
+    row["search_sub_kernels"] = search_processes()
     del l2, kept
     torch.cuda.empty_cache()
 
@@ -3387,9 +3537,42 @@ def phase_hnsw(torch, dev, tmp: Path) -> None:
         check(same, f"hnsw {name}: the snapshot answers other ids")
 
 
+class Calls:
+    """Counts the calls of one object's method while inside (from any
+    thread): a phase's own count of its dispatches or forwards."""
+
+    def __init__(self, obj, name: str):
+        import threading
+
+        self.obj, self.name, self.n = obj, name, 0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        method = getattr(self.obj, self.name)
+
+        def counted(*args, **kwargs):
+            with self._lock:
+                self.n += 1
+            return method(*args, **kwargs)
+
+        setattr(self.obj, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.name)  # the class's method shows again
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    global PARENT
+    ap = argparse.ArgumentParser(description="Drive the port's main paths on one CUDA card.")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="root of another tree of this repository (an earlier commit): its "
+                         "ivf_scan and subtile_select are timed in turns beside these")
+    PARENT = ap.parse_args().parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -3409,7 +3592,8 @@ def main() -> int:
                 "subtile_max_i8": Counter(smi8), "subtile_select": Counter(ss),
                 "rope_prep": Counter(rp), "flash_attention": Counter(fa),
                 "subtile_max_piped": Counter(smp), "fused_mips_topk": Counter(fm),
-                "corpus_stream": Counter(cst), "ivf_scan": Counter(isc)}
+                "corpus_stream": Counter(cst), "ivf_scan": Counter(isc),
+                "ivf_scan_plan": Counter(isc, "launches_plan")}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     t_all = time.perf_counter()
     try:
@@ -3501,10 +3685,12 @@ def main() -> int:
         {"name": "ivf_scan", "route": "cuda", "source": src + "ivf_scan.cu",
          "replaces": "rag_arc_tpu/index/ivf.py:743 (_ivf_search_body's probe gather and "
                      "scores, :768-812; XLA program, no Pallas)",
-         "launches": ivf_launches["ivf_scan"], **kernel_ivf},
+         "launches": ivf_launches["ivf_scan"],
+         "launches_plan": ivf_launches["ivf_scan_plan"], **kernel_ivf},
     ]
     for row in rows:  # each kernel's launches on the four serving phases
         row["launches_serving"] = serving[row["name"]]
+    rows[-1]["launches_plan_serving"] = serving["ivf_scan_plan"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

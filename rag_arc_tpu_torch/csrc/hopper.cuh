@@ -4,8 +4,8 @@
 //   - tensor maps: building a CUtensorMap with cuTensorMapEncodeTiled,
 //     reached through cudaGetDriverEntryPoint so that nothing links
 //     libcuda (the libraries stay plain-C, loaded with ctypes);
-//   - mbarriers (init / arrive / expect-tx / wait) and TMA loads of a 2D
-//     or 3D box into shared memory;
+//   - mbarriers (init / arrive / expect-tx / wait), TMA loads of a 2D
+//     or 3D box into shared memory, and 1D bulk copies;
 //   - wgmma: the shared-memory descriptor of a 128-byte-swizzled tile,
 //     fence / commit / wait, the m64nNk16 bf16 -> f32 products the
 //     kernels use, A from shared memory or from registers, and the
@@ -97,6 +97,20 @@ inline int sm_count() {
   return counts[dev];
 }
 
+// Raises `kernel`'s dynamic shared memory limit to `bytes` once per
+// device and process (`done` is the caller's static flags): the attribute
+// outlives the call, and setting it before every launch costs host time.
+template <class Kernel>
+inline cudaError_t max_dynamic_smem_once(Kernel* kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
 // ----------------------------------------------------------- device side --
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -177,6 +191,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 1D bulk copy (no tensor map): `bytes` (a multiple of 16) from global
+// `src` to shared `dst`, both 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

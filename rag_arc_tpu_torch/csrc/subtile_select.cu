@@ -24,20 +24,27 @@
 //
 // Design. Every entry becomes a 64-bit composite key, an order-preserving
 // uint32 of the value above the complement of its index, so that the
-// composite order is exactly the pick order and no two entries tie. One
-// block per row reads the row once, in tiles of 4096 entries, and appends
-// every entry at or above a threshold T to a buffer of 8192 composites in
-// shared memory (warp-aggregated: one shared atomic a warp a step). When
-// the buffer has no room for the next tile, a radix select over the
-// buffer (8-bit digits from the top, warp-aggregated histograms) raises T
-// to the lower bound of a digit bin that keeps at least k + 1 entries and
-// at most max(k + 1, 256), and the buffer is compacted to those. Entries
-// below T cannot be among the k + 1 largest, so after the row the buffer
-// holds them all: one last radix select cuts it to exactly k + 1, and a
-// bitonic sort in shared memory orders them. Picks are the first k, the
-// residual the (k+1)-th. No copy of x is made.
+// composite order is exactly the pick order and no two entries tie. A
+// block streams its row through a ring of five 8 KB stages in shared
+// memory, two stages a step: one thread keeps the other three in flight
+// with 1D bulk copies (cp.async.bulk, completing on an mbarrier a stage),
+// so the stream goes on while the block filters, and the block meets one
+// barrier a step. Each thread reads its 16 bytes of each stage and
+// appends every entry at or above a threshold T to a buffer of 8192
+// composites in shared memory (warp-aggregated: one shared atomic a warp
+// an entry slot); the few entries before the row's first 16-byte boundary
+// and after its last take scalar loads. When the buffer has no room for
+// the next step, a radix select over the buffer (8-bit digits from the top,
+// warp-aggregated histograms) raises T to the lower bound of a digit bin
+// that keeps at least k + 1 entries and at most max(k + 1, 256), and the
+// buffer is compacted to those. Entries below T cannot be among the k + 1
+// largest, so after the row the buffer holds them all: one last radix
+// select cuts it to exactly k + 1, and a bitonic sort in shared memory
+// orders them. Picks are the first k, the residual the (k+1)-th. No copy
+// of x is made. 104 KB of shared memory a block: two blocks an SM, 48 KB
+// of the row in flight while both filter.
 //
-// k + 1 > 4096 does not fit that buffer: each row's composites are then
+// k + 1 > FAST_K1 does not fit that buffer: each row's composites are then
 // written to a global scratch (B, P) (P = C rounded up to a power of two,
 // allocated by the caller) and bitonic-sorted there by its block. Slow,
 // and correct for every k <= C; the index paths ask for k of at most a
@@ -46,16 +53,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr float NEG = -3.0e38f;      // sentinel below any real score
+constexpr float NEG = -3.0e38f;         // sentinel below any real score
 constexpr int THREADS = 512;
-constexpr int PER = 8;               // entries a thread loads per tile
-constexpr int TILE = THREADS * PER;  // 4096 entries a tile
-constexpr int CAP = 2 * TILE;        // composites the shared buffer holds (64 KB)
-constexpr int FAST_K1 = CAP - TILE;  // k + 1 up to this takes the shared buffer
-constexpr int STREAM_KEEP = 256;     // entries a shrink keeps while streaming (at least k + 1)
-constexpr int SMEM = CAP * 8;
+constexpr int STAGE = THREADS * 4;      // 2048 entries (8 KB) a ring stage: 16 bytes a thread
+constexpr int STAGES = 5;               // ring depth: three stages in flight while two are read
+constexpr int CAP = 8192;               // composites the shared buffer holds (64 KB)
+constexpr int FAST_K1 = CAP - 2 * STAGE;  // k + 1 up to this takes the shared buffer
+constexpr int STREAM_KEEP = 256;        // entries a shrink keeps while streaming (at least k + 1)
+constexpr int RING_BYTES = STAGES * STAGE * 4;
+constexpr int SMEM = RING_BYTES + CAP * 8;
 
 // Order-preserving uint32 of a float, -0.0 keyed as +0.0.
 __device__ __forceinline__ uint32_t order_key(float v) {
@@ -201,16 +211,28 @@ __device__ void write_row(const uint64_t* sorted, int b, int C, int k, int64_t* 
   if (threadIdx.x == 0) resid[b] = C > k ? fmaxf(NEG, pick_value(sorted[k])) : NEG;
 }
 
+// Cuts buf[0, m) to at least min(m, k1) and at most max(k1, target) of
+// its largest (exactly k1 at target = k1); returns the count kept.
+__device__ int cut_to(uint64_t* buf, int* cnt, int m, int k1, int target, uint32_t* hist,
+                      int* sel) {
+  if (m <= target) return m;
+  compact(buf, cnt, m, select_threshold(buf, m, k1, target, hist, sel));
+  return *cnt;
+}
+
 __global__ void __launch_bounds__(THREADS, 2)
-subtile_select_kernel(const float* __restrict__ x, int C, int k, int64_t* __restrict__ picked,
-                      uint8_t* __restrict__ live, float* __restrict__ resid,
-                      uint64_t* __restrict__ scratch, int scratch_p) {
-  extern __shared__ uint64_t buf[];  // CAP composites
+subtile_select_kernel(const float* __restrict__ x, int C, int k,
+                      int64_t* __restrict__ picked, uint8_t* __restrict__ live,
+                      float* __restrict__ resid, uint64_t* __restrict__ scratch, int scratch_p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);                 // STAGES x STAGE entries
+  uint64_t* buf = reinterpret_cast<uint64_t*>(smem + RING_BYTES);  // CAP composites
+  __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ uint32_t hist[256];
   __shared__ int cnt;
   __shared__ int sel[2];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32;
   const float* row = x + (size_t)b * C;
 
   if (k + 1 > FAST_K1) {
@@ -223,40 +245,93 @@ subtile_select_kernel(const float* __restrict__ x, int C, int k, int64_t* __rest
     return;
   }
 
-  if (tid == 0) cnt = 0;
+  // the row: `head` entries up to its first 16-byte boundary and the tail
+  // past its last take scalar loads; the bulk between streams in stages
+  int head = (int)((16u - (unsigned)(reinterpret_cast<uintptr_t>(row) & 15u)) & 15u) / 4;
+  head = min(head, C);
+  const int nbulk = (C - head) / 4 * 4;
+  const int tail = C - head - nbulk;
+  const int n_stages = (nbulk + STAGE - 1) / STAGE;
+  const float* bulk = row + head;
+  auto load_stage = [&](int j) {  // stage j of the row into ring slot j % STAGES
+    const int first = j * STAGE;
+    const uint32_t bytes = (uint32_t)min(STAGE, nbulk - first) * 4u;
+    uint64_t* bar = &full[j % STAGES];
+    hopper::mbar_arrive_expect_tx(bar, bytes);
+    hopper::bulk_load(ring + (j % STAGES) * STAGE, bulk + first, bytes, bar);
+  };
+
+  if (tid == 0) {
+    cnt = 0;
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+    for (int j = 0; j < min(STAGES, n_stages); ++j) load_stage(j);
+  }
   __syncthreads();
+  if (tid < 32) {  // head and tail into the empty buffer (T = 0)
+    const bool take = lane < head + tail;
+    const int i = lane < head ? lane : head + nbulk + (lane - head);
+    append(buf, &cnt, take, take ? composite(__ldg(row + i), i) : 0);
+  }
+  __syncthreads();
+
   const int keep = k + 1 > STREAM_KEEP ? k + 1 : STREAM_KEEP;
   uint64_t t = 0;  // entries below t are not among the k + 1 largest
-  for (int base = 0; base < C; base += TILE) {
-    float v[PER];  // loads first: their latency hides under the barrier
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = base + j * THREADS + tid;
-      v[j] = i < C ? __ldg(row + i) : 0.0f;
+  // ub: a bound on cnt every thread holds alike (cnt itself may already
+  // count another warp's appends of the current step)
+  int ub = head + tail;
+  // for k + 1 > 64 the first shrink comes after one step (a threshold
+  // early, from 4096 entries rather than 8192): measured faster at k = 100,
+  // slower at k = 10 and 20, where the later shrinks it brings cost more
+  bool early = k + 1 > 64 && 2 * keep <= STAGE;
+  for (int j = 0; j < n_stages; j += 2) {  // stages j and j + 1
+    const bool two = j + 1 < n_stages;
+    // the previous step's closing barrier: slots (j - 2) % STAGES and
+    // (j - 1) % STAGES are read
+    if (tid == 0 && j >= 2) {
+      for (int s = j + STAGES - 2; s < min(j + STAGES, n_stages); ++s) load_stage(s);
     }
-    const int n = cnt;
-    __syncthreads();  // every thread has read cnt before an append changes it
-    if (n + TILE > CAP) {
+    if (ub + 2 * STAGE > CAP || (early && ub >= STAGE)) {
+      // every append so far is done and none of this step's has begun
+      early = false;
+      const int n = cnt;
       const uint64_t raised = select_threshold(buf, n, k + 1, keep, hist, sel);
       if (raised > t) t = raised;
       compact(buf, &cnt, n, t);
+      ub = cnt;
+      __syncthreads();  // read before any append of this step
     }
+    const int e0 = tid * 4;
+    bool took = false;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = base + j * THREADS + tid;
-      const uint64_t c = composite(v[j], i);
-      append(buf, &cnt, i < C && c >= t, c);
+    for (int h = 0; h < 2; ++h) {
+      const int js = j + h;
+      if (h == 1 && !two) break;  // block-uniform
+      hopper::mbar_wait(&full[js % STAGES], (uint32_t)(js / STAGES) & 1u);
+      const int first = js * STAGE;
+      const bool in = e0 < nbulk - first;  // stages hold multiples of 4 entries
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in) v = *reinterpret_cast<const float4*>(ring + (js % STAGES) * STAGE + e0);
+      const float vals[4] = {v.x, v.y, v.z, v.w};
+      const int i0 = head + first + e0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint64_t c = composite(vals[e], i0 + e);
+        const bool take = in && c >= t;
+        append(buf, &cnt, take, c);
+        took |= take;
+      }
     }
-    __syncthreads();
+    // closes the step: its slots are read and its appends are done (a
+    // thread appends at most 8)
+    ub += 8 * __syncthreads_count(took);
   }
-
-  // the buffer holds the k + 1 largest (all C entries when C <= k + 1):
-  // cut it to exactly those, then sort them
-  int m = cnt;
-  if (m > k + 1) {
-    compact(buf, &cnt, m, select_threshold(buf, m, k + 1, k + 1, hist, sel));
-    m = k + 1;
-  }
+  // the row's last cut keeps up to twice k + 1 (fewer radix digits) where
+  // the sort's buffer has room
+  const int relaxed = 2 * (k + 1) <= CAP ? max(2 * (k + 1), 64) : k + 1;
+  const int m = cut_to(buf, &cnt, cnt, k + 1, relaxed, hist, sel);
+  // the buffer holds the k + 1 largest (all C entries when C <= k + 1),
+  // and maybe a few more: sort them
   int p = 1;
   while (p < m) p <<= 1;
   for (int i = m + tid; i < p; i += THREADS) buf[i] = 0;  // 0 sorts below every composite
@@ -277,24 +352,28 @@ extern "C" int subtile_select_scratch_cols(int C, int k) {
   return p;
 }
 
+// The constants the wrapper mirrors.
+extern "C" int subtile_select_fast_k1() { return FAST_K1; }
+extern "C" int subtile_select_stage() { return STAGE; }
+
 // C entry, bound with ctypes. x: contiguous (B, C) f32 on the device;
 // 1 <= k <= C. picked (B, k) int64, live (B, k) uint8, resid (B,) f32;
 // scratch a (B, scratch_p) uint64 buffer, scratch_p =
 // subtile_select_scratch_cols(C, k) (null when that is 0). Launches on
-// `stream`, does not synchronise, and returns the CUDA error of the
-// launch (0 on success).
+// `stream`, does not synchronise, and returns the CUDA error of the launch
+// (0 on success).
 extern "C" int subtile_select_launch(const void* x, int B, int C, int k, void* picked,
                                      void* live, void* resid, void* scratch, int scratch_p,
                                      void* stream) {
   if (B < 1 || C < 1 || k < 1 || k > C) return (int)cudaErrorInvalidValue;
   if (scratch_p != subtile_select_scratch_cols(C, k) || (scratch_p > 0 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(subtile_select_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  static bool smem_set[64] = {};
+  cudaError_t err = hopper::max_dynamic_smem_once(subtile_select_kernel, SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   subtile_select_kernel<<<B, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), C, k, static_cast<int64_t*>(picked),
-      static_cast<uint8_t*>(live), static_cast<float*>(resid),
-      static_cast<uint64_t*>(scratch), scratch_p);
+      static_cast<uint8_t*>(live), static_cast<float*>(resid), static_cast<uint64_t*>(scratch),
+      scratch_p);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -32,6 +34,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(module: str, name: str = "launches") -> None:
+    """Adds one to ``<module>.<name>``, a wrapper's launch count. One lock
+    serves every wrapper: ``+=`` on a module global is a read and a write,
+    and a thread between them loses another's increment. The count stays a
+    plain module attribute that callers read and set to 0."""
+    mod = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(mod, name, getattr(mod, name) + 1)
 
 
 @dataclass(frozen=True)
@@ -71,11 +86,12 @@ def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build(name: str) -> Built:
+def build(name: str, csrc: Path = CSRC_DIR) -> Built:
     """Compile ``csrc/<name>.cu`` (once per source and header hash) and
-    load it."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = source_digest(name)
+    load it. ``csrc``: another source tree's kernels (an A/B against an
+    earlier version), built beside these under their own hash."""
+    src = csrc / f"{name}.cu"
+    digest = source_digest(name, csrc)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     log_path = BUILD_DIR / f"lib{name}_{digest}.log"

@@ -22,7 +22,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 from rag_arc_tpu_torch.ops.subtile_max import NEG
 
 # kernel launches since the count was last set to 0; only the wrapper's
@@ -66,7 +66,6 @@ def corpus_stream(corpus: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take :func:`corpus_stream_plain`; CUDA tensors launch the
     kernel on the current stream or raise."""
-    global launches
     if corpus.ndim != 2 or corpus.dtype not in _DTYPE_CODE:
         raise ValueError(
             f"expected an (N, d) bf16, f32 or int8 corpus, got "
@@ -101,5 +100,5 @@ def corpus_stream(corpus: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"corpus_stream kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return out

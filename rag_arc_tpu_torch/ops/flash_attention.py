@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 
 SUPPORTED_D = (64, 128)
 
@@ -132,7 +132,6 @@ def flash_attention(
     kernel on the current stream or raise. A contiguous bf16 q, k or v
     whose data is off a 16-byte boundary (a view with a storage offset) is
     copied first: the kernel's TMA loads need aligned bases."""
-    global launches
     if (q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or k.shape[0] != q.shape[0]
             or k.shape[2:] != q.shape[2:] or k.shape[1] == 0 or q.shape[1] % k.shape[1]):
         raise ValueError(
@@ -182,5 +181,5 @@ def flash_attention(
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return out

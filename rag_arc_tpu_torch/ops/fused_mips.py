@@ -40,7 +40,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 from rag_arc_tpu_torch.ops.subtile_max import NEG, tma_operands
 from rag_arc_tpu_torch.ops.topk import stable_topk
 from rag_arc_tpu_torch.ops.two_level import prepare_queries
@@ -226,7 +226,6 @@ def fused_mips_topk(
     loads cannot describe (a view off a 16-byte boundary, rows not a
     multiple of 16 bytes) are copied first (``subtile_max.tma_operands``);
     ``skip_tiles`` picks the plain version's schedule only."""
-    global launches
     del q_block
     _check(queries, corpus, valid, sqnorm, k, tile_n, metric)
     if corpus.device.type == "cpu":
@@ -273,5 +272,5 @@ def fused_mips_topk(
         )
     if err != 0:
         raise RuntimeError(f"fused_mips kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return out_s, out_p.long()

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 
 SUPPORTED_D = (64, 128)
 
@@ -143,7 +143,6 @@ def rope_prep(
 
     CPU tensors take :func:`rope_prep_plain`; CUDA tensors launch the
     kernel on the current stream or raise."""
-    global launches
     b, l, _ = q.shape
     if nh % nkv:
         raise ValueError(f"nh {nh} not a multiple of nkv {nkv}")
@@ -198,5 +197,5 @@ def rope_prep(
         )
     if err != 0:
         raise RuntimeError(f"rope_prep kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return tuple(out)

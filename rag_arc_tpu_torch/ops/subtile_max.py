@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 
 NEG = -3.0e38  # sentinel below any real score (avoids inf - inf)
 
@@ -152,7 +152,6 @@ def subtile_max(
     the kernel at g = 128 and takes the pairwise max (:func:`widen_g`).
     bf16 operands that TMA cannot describe are copied first
     (:func:`tma_operands`)."""
-    global launches, launches_l2
     _check(queries, corpus, valid, g, sqnorm)
     if corpus.device.type == "cpu":
         return subtile_max_plain(queries, corpus, valid, g, sqnorm)
@@ -194,8 +193,5 @@ def subtile_max(
         )
     if err != 0:
         raise RuntimeError(f"subtile_max kernel launch failed: CUDA error {err}")
-    if sqnorm is None:
-        launches += 1
-    else:
-        launches_l2 += 1
+    count_launch(__name__, "launches" if sqnorm is None else "launches_l2")
     return widen_g(out, g, kg)

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 from rag_arc_tpu_torch.ops.subtile_max import (
     KERNEL_MAX_G,
     NEG,
@@ -128,7 +128,6 @@ def subtile_max_i8(
     g = 128 kernel and a pairwise max, as in ``subtile_max``). Codes that
     TMA cannot describe (a view off a 16-byte boundary, d % 16 != 0) are
     copied first (``subtile_max.tma_operands``)."""
-    global launches
     _check(q_i8, codes, scale, valid, g)
     if codes.device.type == "cpu":
         return subtile_max_i8_plain(q_i8, codes, scale, valid, g, block_scales)
@@ -159,5 +158,5 @@ def subtile_max_i8(
         )
     if err != 0:
         raise RuntimeError(f"subtile_max_i8 kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return widen_g(out, g, kg)

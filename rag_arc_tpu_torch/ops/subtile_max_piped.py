@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 from rag_arc_tpu_torch.ops.subtile_max import (
     SUPPORTED_G,
     subtile_max_plain,
@@ -116,7 +116,6 @@ def subtile_max_piped(
     bf16 and int8 operands that TMA cannot describe (a view off a 16-byte
     boundary, rows not a multiple of 16 bytes) are copied first
     (``subtile_max.tma_operands``)."""
-    global launches
     _check(queries, corpus, valid, g, scale)
     if corpus.device.type == "cpu":
         return subtile_max_piped_plain(queries, corpus, valid, g, scale)
@@ -148,5 +147,5 @@ def subtile_max_piped(
         )
     if err != 0:
         raise RuntimeError(f"subtile_max_piped kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return widen_g(out, g, kg)

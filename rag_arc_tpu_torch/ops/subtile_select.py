@@ -8,9 +8,10 @@ toward the lower index), a liveness flag per pick (value > NEG / 2) and
 the max of the entries not picked (NEG when none is left).
 
 On the card :func:`iterative_argmax_resid` runs the hand-written CUDA
-kernel ``csrc/subtile_select.cu`` (one launch, one read of x, no loop
-over k); on the CPU it runs :func:`iterative_argmax_resid_plain`, the
-JAX package's tournament ported literally. Where a row has fewer than k
+kernel ``csrc/subtile_select.cu`` (one launch, a block a row, one read
+of x streamed through a ring of bulk copies, no loop over k); on the CPU
+it runs :func:`iterative_argmax_resid_plain`, the JAX package's
+tournament ported literally. Where a row has fewer than k
 live entries the tournament re-picks positions while the kernel picks
 distinct ones, so dead picks may differ; live picks, flags and the
 residual are equal. -0.0 and +0.0 tie (the lower index first). Neither
@@ -25,12 +26,17 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from rag_arc_tpu_torch.ops._build import Built, build
+from rag_arc_tpu_torch.ops._build import Built, build, count_launch
 from rag_arc_tpu_torch.ops.subtile_max import NEG
 
 # kernel launches since the count was last set to 0; only the wrapper's
 # CUDA branch adds to it
 launches = 0
+
+# the kernel's shapes (csrc/subtile_select.cu)
+STAGE = 2048  # entries a ring stage holds (8 KB)
+CAP = 8192  # composites the shared candidate buffer holds
+FAST_K1 = CAP - 2 * STAGE  # k + 1 up to this takes the shared buffer
 
 
 def iterative_argmax_resid_plain(x: torch.Tensor, k: int, chunk: int = 512):
@@ -86,6 +92,8 @@ def load() -> Built:
         ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    for name in ("subtile_select_fast_k1", "subtile_select_stage"):
+        getattr(built.lib, name).restype = ctypes.c_int
     cols = built.lib.subtile_select_scratch_cols
     cols.argtypes = [ctypes.c_int, ctypes.c_int]
     cols.restype = ctypes.c_int
@@ -108,7 +116,6 @@ def iterative_argmax_resid(x: torch.Tensor, k: int, chunk: int = 512):
     CPU tensors take :func:`iterative_argmax_resid_plain` (``chunk`` is
     its chunk width); CUDA tensors launch ``csrc/subtile_select.cu`` once
     on the current stream, or raise."""
-    global launches
     _check(x, k)
     if x.device.type == "cpu":
         return iterative_argmax_resid_plain(x, k, chunk)
@@ -135,10 +142,9 @@ def iterative_argmax_resid(x: torch.Tensor, k: int, chunk: int = 512):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             x.data_ptr(), b, c, k, picked.data_ptr(), live.view(torch.uint8).data_ptr(),
-            resid.data_ptr(), None if scratch is None else scratch.data_ptr(), scratch_p,
-            stream,
+            resid.data_ptr(), None if scratch is None else scratch.data_ptr(), scratch_p, stream,
         )
     if err != 0:
         raise RuntimeError(f"subtile_select kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return picked, live, resid

@@ -1318,3 +1318,206 @@ def test_ivf_and_hnsw_stores_end_to_end_on_the_card(cuda, index_type, tmp_path):
     ids = [[d.id for d, _ in h] for h in back.batch_similarity_search_with_score(texts[:9], k=5)]
     assert ids == [[d.id for d, _ in h]
                    for h in store.batch_similarity_search_with_score(texts[:9], k=5)]
+
+
+# -- the grouped IVF scan: one read of a list for every query that probes it ---------
+
+
+def _group_case(cuda, dtype, n_queries, d=768, offset=0, nlist=6, lmax=260, seed=0):
+    """Every query probes list 2 first and one other list: list 2's group is
+    all ``n_queries`` queries. Slots 128-255 of list 2 are dead (a whole
+    128-row tile), the last tile is ragged, ~15% of the other slots dead."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn((nlist, lmax, d + offset), generator=g, device=cuda)
+    lists = (base * 40).clamp(-127, 127).to(torch.int8) if dtype == torch.int8 \
+        else base.to(dtype)
+    lists = lists[:, :, offset:]
+    sqnorm = torch.rand((nlist, lmax), generator=g, device=cuda)
+    valid = torch.rand((nlist, lmax), generator=g, device=cuda) > 0.15
+    valid[2, 128:256] = False
+    q = torch.randn((n_queries, d), generator=g, device=cuda)
+    other = torch.randint(0, nlist - 1, (n_queries,), generator=g, device=cuda)
+    probe = torch.stack([torch.full_like(other, 2), other + (other >= 2).long()], dim=1)
+    cross = torch.randn((n_queries, nlist), generator=g, device=cuda) \
+        if dtype == torch.int8 else None
+    return q, probe, lists, sqnorm, valid, cross
+
+
+@pytest.mark.parametrize("dtype,metric", [(torch.float32, "cosine"), (torch.float32, "l2"),
+                                          (torch.bfloat16, "ip"), (torch.bfloat16, "l2"),
+                                          (torch.int8, "cosine")])
+@pytest.mark.parametrize("n_queries", [1, 3, 17, 64, 257, 1100])
+def test_ivf_scan_one_list_probed_by_many_queries(cuda, dtype, metric, n_queries):
+    """Across the CUDA cores' passes, the prologue/CSR limit and, for bf16
+    lists, the wgmma crossover (from 9 queries and TC_MIN_GROUP a list)."""
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, cross = _group_case(cuda, dtype, n_queries)
+    sched = isc.scan_schedule(n_queries, 2, lists.shape[2], lists.shape[0],
+                              tc_ok=dtype == torch.bfloat16)
+    csr = sched["csr"]
+    before, plans = isc.launches, isc.launches_plan
+    got = isc.ivf_scan(q, probe, lists, sqnorm, valid, metric, cross)
+    torch.cuda.synchronize()
+    assert isc.launches == before + 1 and isc.launches_plan == plans + int(csr)
+    want = isc.ivf_scan_plain(q, probe, lists, sqnorm, valid, metric, cross)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    live = torch.isfinite(want)
+    # f32 sums in another order over up to d products of magnitude <= ~4e3
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("n_queries,d", [(11, 768), (40, 768), (64, 768), (65, 768),
+                                         (257, 768), (1100, 768), (300, 96), (300, 776)])
+def test_ivf_scan_wgmma_path_matches_plain(cuda, metric, n_queries, d):
+    """bf16 lists on the wgmma path, from the fewest queries it takes (11
+    over 6 lists: 3.7 a list): a pass of 64 or 128 queries, several
+    passes, d off a 64-wide slice, the dead tile and ragged end."""
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, _ = _group_case(cuda, torch.bfloat16, n_queries, d=d,
+                                                    seed=n_queries)
+    assert isc.scan_schedule(n_queries, 2, d, lists.shape[0], True)["tc"]
+    before, plans = isc.launches, isc.launches_plan
+    n = 2 * lists.shape[1]
+    buf = torch.full((n_queries, n + 5), 7.0, device=cuda)
+    isc.ivf_scan(q, probe, lists, sqnorm, valid, metric, out=buf[:, :n])
+    torch.cuda.synchronize()
+    assert isc.launches == before + 1 and isc.launches_plan == plans + 1
+    want = isc.ivf_scan_plain(q, probe, lists, sqnorm, valid, metric)
+    got = buf[:, :n]
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    live = torch.isfinite(want)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=2e-3)
+    assert bool((buf[:, n:] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype,d,offset", [(torch.int8, 768, 0), (torch.bfloat16, 100, 3),
+                                            (torch.bfloat16, 768, 3)])
+def test_ivf_scan_large_groups_wgmma_cannot_read_take_the_cores(cuda, dtype, d, offset):
+    """int8 codes and bf16 views TMA cannot describe stay on the CUDA
+    cores at a group size that sends aligned bf16 lists to wgmma."""
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, cross = _group_case(cuda, dtype, 40, d=d, offset=offset)
+    assert isc.scan_schedule(40, 2, d, lists.shape[0], True)["tc"]  # were they aligned bf16
+    metric = "cosine" if dtype == torch.int8 else "ip"
+    before, plans = isc.launches, isc.launches_plan
+    got = isc.ivf_scan(q, probe, lists, sqnorm, valid, metric, cross)
+    torch.cuda.synchronize()
+    assert isc.launches == before + 1 and isc.launches_plan == plans  # 80 pairs: no CSR
+    want = isc.ivf_scan_plain(q, probe, lists, sqnorm, valid, metric, cross)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    live = torch.isfinite(want)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n_queries", [5, 600])
+def test_ivf_scan_grouped_on_offset_views_into_a_wider_buffer(cuda, dtype, n_queries):
+    """d = 100 views 3 elements into wider rows (scalar loads), deleted rows
+    in every list, and ``out=`` the front of a wider buffer."""
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, cross = _group_case(cuda, dtype, n_queries, d=100,
+                                                        offset=3, seed=1)
+    valid[:, ::7] = False
+    metric = "cosine" if dtype == torch.int8 else "ip"
+    n = 2 * lists.shape[1]
+    buf = torch.full((n_queries, n + 77), 7.0, device=cuda)
+    isc.ivf_scan(q, probe, lists, sqnorm, valid, metric, cross, out=buf[:, :n])
+    want = isc.ivf_scan_plain(q, probe, lists, sqnorm, valid, metric, cross)
+    assert torch.equal(torch.isneginf(buf[:, :n]), torch.isneginf(want))
+    live = torch.isfinite(want)
+    torch.testing.assert_close(buf[:, :n][live], want[live], rtol=1e-5, atol=2e-3)
+    assert bool((buf[:, n:] == 7.0).all())
+
+
+@pytest.mark.parametrize("b,nprobe", [(1, 3), (300, 4)])
+def test_ivf_scan_a_block_a_pair_with_more_lists_than_pairs(cuda, b, nprobe):
+    """nlist past B·nprobe: the grid takes one row a (b, p) pair, the
+    list's first pair scoring it for the whole group (prologue and CSR)."""
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    q, probe, lists, sqnorm, valid, _ = _scan_case(cuda, torch.bfloat16, b, nprobe,
+                                                   nlist=2000, lmax=40, d=64, seed=b)
+    probe[: b // 2, 0] = 7  # half the queries share a list
+    probe = torch.where((probe == 7) & (torch.arange(nprobe, device=cuda) > 0), 8, probe)
+    sched = isc.scan_schedule(b, nprobe, 64, 2000)
+    assert sched["by_pair"] and sched["csr"] is (b * nprobe > isc.PROLOGUE_MAX)
+    got = isc.ivf_scan(q, probe, lists, sqnorm, valid, "ip")
+    want = isc.ivf_scan_plain(q, probe, lists, sqnorm, valid, "ip")
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    live = torch.isfinite(want)
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,nprobe,nlist", [(1, 1, 1), (1, 9, 16), (40, 30, 31), (1100, 8, 100),
+                                            (3000, 2, 5)])
+def test_probe_plan_kernel_matches_plain(cuda, b, nprobe, nlist):
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    g = torch.Generator(device=cuda).manual_seed(b)
+    probe = torch.argsort(torch.rand((b, nlist), generator=g, device=cuda), dim=1)[:, :nprobe]
+    before = isc.launches_plan
+    offsets, pairs = isc.probe_plan(probe, nlist)
+    torch.cuda.synchronize()
+    assert isc.launches_plan == before + 1
+    w_off, w_pairs = isc.probe_plan_plain(probe, nlist)
+    assert torch.equal(offsets, w_off)
+    for c in range(nlist):  # pairs within a list come in any order
+        lo, hi = int(w_off[c]), int(w_off[c + 1])
+        assert torch.equal(torch.sort(pairs[lo:hi]).values, w_pairs[lo:hi])
+
+
+def test_kernel_constants_match_the_wrappers(cuda):
+    from rag_arc_tpu_torch.ops import ivf_scan as isc
+
+    lib = isc.load().lib
+    assert lib.ivf_scan_prologue_max() == isc.PROLOGUE_MAX
+    assert lib.ivf_scan_pass_max() == isc.PASS_MAX
+    lib = ss.load().lib
+    assert lib.subtile_select_fast_k1() == ss.FAST_K1
+    assert lib.subtile_select_stage() == ss.STAGE
+
+
+# -- the streamed select: the ring and the row's unaligned ends -----------------------
+
+
+@pytest.mark.parametrize("b", [1, 33, 160, 512])
+@pytest.mark.parametrize("c,k", [(5, 5), (1000, 10), (2047, 100), (2047, 2047),
+                                 (125_003, 10), (125_003, 100)])
+def test_streamed_select_equals_plain(cuda, b, c, k):
+    """C below one ring stage, C not a multiple of a stage (rows off a
+    16-byte boundary), k = C; the slab's -0.0/+0.0, tie and all-NEG rows."""
+    x = _select_slab(b, c, k, cuda, seed=b + c + k)
+    before = ss.launches
+    got = ss.iterative_argmax_resid(x, k)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    _select_equal(got, ss.iterative_argmax_resid_plain(x, k), c)
+
+
+@pytest.mark.parametrize("b,c,k", [(1, 125_003, 10), (33, 125_000, 100), (33, 40_000, 1000),
+                                   (7, 70_001, 1)])
+def test_select_on_a_view_off_a_16_byte_boundary(cuda, b, c, k):
+    # a view 3 floats into its storage: row 0 starts off a 16-byte boundary
+    x = _select_slab(b, c, k, cuda, seed=k)
+    flat = torch.empty(b * c + 3, device=cuda)
+    flat[3:] = x.reshape(-1)
+    x = flat[3:].view(b, c)
+    _select_equal(ss.iterative_argmax_resid(x, k), ss.iterative_argmax_resid_plain(x, k), c)
+
+
+@pytest.mark.parametrize("k", [ss.FAST_K1 - 1, ss.FAST_K1])
+def test_select_at_the_shared_buffer_limit(cuda, k):
+    """k + 1 = FAST_K1 (the last k the shared buffer takes) and one past it
+    (the global-scratch route), held to a stable descending sort."""
+    c = 9000
+    x = _select_slab(7, c, k, cuda, seed=k)
+    gi, gl, gr = ss.iterative_argmax_resid(x, k)
+    order = torch.sort(x + 0.0, dim=1, descending=True, stable=True)
+    wl = order.values[:, :k] > ss.NEG * 0.5
+    _select_equal((gi, gl, gr), (order.indices[:, :k], wl,
+                                 torch.clamp(order.values[:, k], min=ss.NEG)), c)
