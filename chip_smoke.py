@@ -113,6 +113,33 @@ Phases, each printing its own lines and times:
        engine's add is single-threaded), f32, SQ8 and PQ + refine
        built concurrently: build s, batch and single-query QPS, recall@10
        against the exact top-10, a snapshot round trip each;
+     - graph (every kernel count set to 0 just before, read just after:
+       ``launches_graph``): ``tools/graph_merge_bench.py --hard``'s corpus
+       (the port's ``rag_arc_tpu_torch/tools/graph_merge_bench.py``, the
+       JAX tool's draws) at 100,000 x 768 in an f32 ``ArrayGraphStore`` on
+       the card (capacity 131,072): upserts and edges, embed + index, the
+       merge's wall time split into the self-search (one 4,096-query chunk
+       on CUDA events), the host pair loop and union-find + the edge
+       rebuild; its pairs held to the all-plain pipeline's (plain producer
+       + ``plain_select()``) outside ties within 1e-5 of the threshold or a
+       row's k-th score; no dangling edges, no entity self-loops, every
+       boundary negative kept, ``subtile_max`` (f32) and the select
+       launched on every full chunk; the default corpus at 100,000 x 768
+       with planted recall 1.0, then its rows as 100,000 events through
+       ``disambiguate_events`` (cutoff 0.85), held and counted the same
+       way; the f32 producer and the select at the
+       chunk's shape (B 4,096, N 131,072, C 8,192, k 11) in turns with
+       their bounds; then a GraphRAG flow: ``HyperRAGGraphExtractor`` over
+       a scripted ``FakeLLM`` on 320 generated chunks,
+       ``store_hyperrag_graph`` with the 768 x 12 ``TorchEncoderEmbeddings``
+       on the card (merge, event KNN), entity-linked queries whose chunks
+       all mention the entity, a snapshot round trip;
+     - encoders (counts set to 0 and read the same way): ``BertModel`` at
+       bert-base widths, seeded, f32 B = 64 L = 128 on the card against
+       the same weights on the CPU within 1e-4 (TF32 off), timed;
+       ``TextEncoderFast`` against ``TextEncoder`` on the same 768 x 12
+       weights, bf16 (row error <= 1e-2 relative) and f32 (1e-5), both
+       timed;
   5. end to end (the select kernel's launches counted as well):
      ``TorchEncoderEmbeddings`` at the full 768 x 12 config
      (seeded random weights) feeding ``TorchVectorStore.from_texts``:
@@ -197,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -376,6 +404,17 @@ HNSW_N = 6_144  # tools/hnsw_bench.py builds 100,000: cut so the f32 build stays
 HNSW_QUERIES = 512
 HNSW_EF = 64
 HNSW_SINGLE = 64
+
+GRAPH_N = 100_000  # tools/graph_merge_bench.py's published merge scale, x 768
+GRAPH_TOP_K = 10  # the store's knn_top_k: each self-search asks top_k + 1
+GRAPH_THRESHOLD = 0.95  # the store's merge threshold
+GRAPH_TIE = 1e-5  # f32 sums of 768 products in another order: pairs this close to a boundary
+GRAPH_CHUNKS = 320  # generated chunks through the HyperRAG extractor
+GRAPH_QUERIES = 8  # entity-linked chunk queries
+BERT_B, BERT_L = 64, 128
+BERT_TOL = 1e-4  # f32, TF32 off: the card's sums against the CPU's
+FAST_B, FAST_L = 64, 128
+FAST_TOL = {"f32": 1e-5, "bf16": 1e-2}  # abs at f32; relative row error at bf16
 
 CARD = ""
 ROOT = Path(__file__).resolve().parent
@@ -3537,14 +3576,400 @@ def phase_hnsw(torch, dev, tmp: Path) -> None:
         check(same, f"hnsw {name}: the snapshot answers other ids")
 
 
+@contextlib.contextmanager
+def plain_producer():
+    """The two-level ops with the producer's plain version in place of its
+    kernel (with :func:`plain_select`, the all-plain pipeline)."""
+    from rag_arc_tpu_torch.ops import two_level as tl
+
+    kernel = tl.subtile_max
+    tl.subtile_max = tl.subtile_max_plain
+    try:
+        yield
+    finally:
+        tl.subtile_max = kernel
+
+
+def pairs_off_ties(got, want, threshold: float, kth) -> int:
+    """Pairs in one set and not the other must be ties: a score within
+    GRAPH_TIE of the threshold, or of either key's k-th score in either
+    pipeline. Returns the number of such pairs; a pair that is no tie
+    fails the run."""
+    got_d = {(a, b): s for a, b, s in got}
+    want_d = {(a, b): s for a, b, s in want}
+    diff = set(got_d) ^ set(want_d)
+    for pair in diff:
+        score = got_d.get(pair, want_d.get(pair))
+        bounds = (threshold, *kth[pair[0]], *kth[pair[1]])
+        check(any(abs(score - v) <= GRAPH_TIE for v in bounds),
+              f"graph: pair {pair} at {score} differs from the all-plain pipeline's")
+    both = set(got_d) & set(want_d)
+    err = max((abs(got_d[p] - want_d[p]) for p in both), default=0.0)
+    check(err <= GRAPH_TIE, f"graph: pair scores differ from the plain pipeline's by {err}")
+    return len(diff)
+
+
+def graph_pass(torch, sm, ss, store, kind: str, threshold: float, run):
+    """``run()`` (the merge or the event KNN) as a user calls it, timed,
+    its self-search and pairs recorded; first, uncounted, the all-plain
+    pipeline's pairs over the same index, which the run's are held to
+    outside ties. Returns (run's result, wall s, pairs, pairs apart at
+    ties, the run's kernel launches, its host spans in ms)."""
+    from rag_arc_tpu_torch.utils.tracing import get_tracer
+
+    with uncounted(sm, ss), plain_producer(), plain_select():
+        keys, s_p, h_p = store._self_search(kind, GRAPH_TOP_K)
+    want = store._pairs_from_hits(kind, keys, s_p, h_p, threshold)
+    before = sm.launches, ss.launches
+    tracer = get_tracer()
+    tracer.reset()
+    with Calls(store, "_self_search", keep=True) as searches, \
+            Calls(store, "_similar_pairs", keep=True) as found:
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
+    spans = {n: tracer.summary().get(f"graph.{n}", {}).get("total_ms", 0.0)
+             for n in ("search", "pairs", "merge")}
+    launches = {"subtile_max": sm.launches - before[0], "subtile_select": ss.launches - before[1]}
+    (_, s_k, _), = searches.results
+    (got,) = found.results
+    kth = {key: (float(a), float(b)) for key, a, b in zip(keys, s_k[:, -1], s_p[:, -1])}
+    return out, wall, got, pairs_off_ties(got, want, threshold, kth), launches, spans
+
+
+def graph_script(chunk: str, history: str, fmt):
+    """The scripted extraction LLM of the GraphRAG flow: a chunk's events,
+    entities and relations from its own text (some machines under an alias,
+    a double space, that embeds as the name itself), nothing new in round
+    two, every candidate kept by the review."""
+    from rag_arc_tpu_torch.graph.schema import EntityReview, KnowledgeStructure
+
+    if fmt is EntityReview:
+        return EntityReview(keep=re.findall(r'"entity_name": "([^"]+)"', chunk))
+    if '"events": []' not in history:
+        return KnowledgeStructure()
+    i, m1, p, d, m2, team = re.search(
+        r"Shift report (\d+): the (\w+ \d+) failed at plant (\d+) on day (\d+); the "
+        r"(\w+ \d+) was repaired by (team \w)", chunk).groups()
+    e1 = f"the {m1} failed at plant {p} on day {d}"
+    e2 = f"the {m2} was repaired by {team} on day {d}"
+    name1 = m1.replace(" ", "  ") if int(i) % 7 == 0 else m1
+    return KnowledgeStructure.model_validate({
+        "events": [{"id": "E1", "content": e1, "participants": [name1]},
+                   {"id": "E2", "content": e2, "participants": [m2, team]}],
+        "entities": [{"entity_name": name1, "entity_type": "object",
+                      "description": f"the {m1} of plant {p}" if int(i) % 3 == 0 else None},
+                     {"entity_name": m2, "entity_type": "object"},
+                     {"entity_name": team, "entity_type": "organization"}],
+        "event_relations": [{"head_event": "E1", "tail_event": "E2", "relation_type": "CAUSES"}],
+        "entity_relations": [{"head_entity": m2, "tail_entity": team,
+                              "relation_type": "REPAIRED_BY"}],
+    })
+
+
+def graph_chunks(n: int) -> list[str]:
+    rng = np.random.default_rng(SEED)
+    machines = [f"{kind} {j}" for kind in ("pump", "valve", "boiler", "compressor", "turbine")
+                for j in range(12)]
+    out = []
+    for i in range(n):
+        m1, m2 = rng.choice(len(machines), 2, replace=False)
+        out.append(f"Shift report {i}: the {machines[m1]} failed at plant {rng.integers(1, 6)} "
+                   f"on day {rng.integers(1, 31)}; the {machines[m2]} was repaired by team "
+                   f"{'abcdefgh'[rng.integers(0, 8)]}.")
+    return out
+
+
+def phase_graph(torch, sm, ss, dev, tmp: Path) -> dict:
+    """GraphRAG on the card: the merge bench's hard corpus at 100,000 x 768
+    (its self-search chunks past the score budget run ``subtile_max``'s f32
+    mode and the select), held to the all-plain pipeline; the default
+    corpus's planted recall and its event KNN; the f32 producer and the
+    select at the chunk's shape in turns; then a HyperRAG extract -> store
+    -> merge -> event KNN -> entity-linked retrieval -> snapshot flow with
+    the 768 x 12 encoder."""
+    from rag_arc_tpu_torch.graph.schema import GraphNode
+    from rag_arc_tpu_torch.graph.store import SEARCH_CHUNK
+    from rag_arc_tpu_torch.ops.two_level import prepare_queries
+    from rag_arc_tpu_torch.tools import graph_merge_bench as gmb
+
+    phase(f"graph: tools/graph_merge_bench.py --hard at {GRAPH_N} x {DIM} (f32 cosine, "
+          f"threshold {GRAPH_THRESHOLD}, top {GRAPH_TOP_K} + 1, {SEARCH_CHUNK}-query chunks)")
+    t0 = time.perf_counter()
+    corpus = gmb.hard_corpus(GRAPH_N, DIM, SEED)
+    corpus_s = time.perf_counter() - t0
+    store, n_edges, upsert_s = gmb.planted_store(corpus.names, corpus.vecs, device=dev,
+                                                 edges=corpus.edges)
+    t0 = time.perf_counter()
+    store.generate_embeddings()
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    index = store._indexes["entity"]
+    full = GRAPH_N // SEARCH_CHUNK
+    report(f"hard corpus {corpus_s:.2f} s ({len(corpus.clusters)} chains of 2-8, "
+           f"{len(corpus.neg_pairs)} boundary negatives); upserts + {n_edges} edges "
+           f"{upsert_s:.2f} s (host); embed + index {embed_s:.2f} s; capacity "
+           f"{index.capacity}, {full} full chunks + one of {GRAPH_N % SEARCH_CHUNK}")
+    check(4 * SEARCH_CHUNK * index.capacity > index.SCORE_BYTES_BUDGET
+          and 4 * (GRAPH_N % SEARCH_CHUNK) * index.capacity <= index.SCORE_BYTES_BUDGET,
+          "graph: the full chunks would not take the kernel path, or the last one would")
+
+    merged, merge_s, pairs, ties, launches_merge, spans = graph_pass(
+        torch, sm, ss, store, "entity", GRAPH_THRESHOLD, store.merge_duplicate_entities)
+    stats = gmb.hard_report(store, corpus)
+    q = prepare_queries(torch.from_numpy(index.take(np.arange(SEARCH_CHUNK))).to(dev),
+                        torch.float32, "cosine")
+    with uncounted(sm, ss):
+        search_ms = cuda_ms(lambda: index.search_device(q, GRAPH_TOP_K + 1), 5)
+    report(f"merge {merge_s:.2f} s wall ({GRAPH_N / merge_s:.0f} entities/s): self-search "
+           f"{spans['search']:.0f} ms (one {SEARCH_CHUNK}-query chunk on the card "
+           f"{search_ms:.3f} ms, CUDA events, mean of 5, after the merge's tombstones), host "
+           f"pair loop {spans['pairs']:.0f} ms, union-find + edge rebuild {spans['merge']:.0f} "
+           f"ms (host spans); {merged} merged; {json.dumps(stats)}; launches "
+           f"{launches_merge}; {len(pairs)} pairs, equal to the all-plain pipeline's "
+           f"(plain producer + plain_select()) but {ties} at ties within {GRAPH_TIE:g}")
+    check(stats["dangling_edges"] == 0 and stats["entity_self_loops"] == 0,
+          "graph: the merge left dangling edges or entity self-loops")
+    check(stats["boundary_negatives_preserved"] == stats["boundary_negatives"],
+          "graph: a boundary negative pair was merged")
+    for name, n in launches_merge.items():
+        check(n >= full, f"graph: {name} launched {n} times for {full} full chunks")
+    del store, q
+    torch.cuda.empty_cache()
+
+    phase(f"graph: tools/graph_merge_bench.py's default corpus at {GRAPH_N} x {DIM}")
+    names, vecs, n_dup = gmb.default_corpus(GRAPH_N, DIM, seed=SEED)
+    store, _, upsert_s = gmb.planted_store(names, vecs, device=dev)
+    t0 = time.perf_counter()
+    store.generate_embeddings()
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merged = store.merge_duplicate_entities()
+    merge_s = time.perf_counter() - t0
+    recall = merged / n_dup
+    report(f"upserts {upsert_s:.2f} s, embed + index {embed_s:.2f} s, merge {merge_s:.2f} s "
+           f"({GRAPH_N / merge_s:.0f} entities/s); {merged} merged of {n_dup} planted pairs: "
+           f"planted_recall {recall}")
+    check(recall == 1.0, f"graph: planted recall {recall} != 1.0")
+    # the event KNN at the same scale: the corpus's rows as events
+    for name in names:
+        store.upsert_node(GraphNode(key=name, kind="event", content=name))
+    store.generate_embeddings()
+    added, knn_s, pairs, ties, launches_knn, spans = graph_pass(
+        torch, sm, ss, store, "event", store.knn_cutoff, store.disambiguate_events)
+    report(f"event KNN (disambiguate_events, cutoff {store.knn_cutoff}) over {GRAPH_N} events: "
+           f"{knn_s:.2f} s wall, self-search {spans['search']:.0f} ms, pair loop "
+           f"{spans['pairs']:.0f} ms (host spans); {added} SIMILAR_TO edges for {n_dup} "
+           f"planted pairs; launches {launches_knn}; pairs equal to the all-plain pipeline's "
+           f"but {ties} at ties within {GRAPH_TIE:g}")
+    check(added == len(pairs) >= n_dup, f"graph: the event KNN added {added} edges")
+    for name, n in launches_knn.items():
+        check(n >= full, f"graph: {name} launched {n} times for {full} full event chunks")
+
+    # the f32 producer and the select at the merge chunk's shape
+    index = store._indexes["entity"]
+    qc = prepare_queries(torch.from_numpy(index.take(np.arange(SEARCH_CHUNK))).to(dev),
+                         torch.float32, "cosine")
+    n, b, c = index.capacity, SEARCH_CHUNK, index.capacity // G
+    kq = GRAPH_TOP_K + 1
+    with uncounted(sm, ss):
+        kernel = lambda: sm.subtile_max(qc, index.emb, index.valid, G)  # noqa: E731
+        plain = lambda: sm.subtile_max_plain(qc, index.emb, index.valid, G)  # noqa: E731
+        sub, want_sub = kernel(), plain()
+        err = float((sub - want_sub).abs().max())
+        report(f"subtile_max f32 B={b} N={n} d={DIM} g={G}: max|kernel - plain| = {err:.3e} "
+               f"(atol {TOL:g})")
+        check(err <= TOL, f"graph: the f32 producer disagrees with its plain version: {err}")
+        del want_sub
+        flops = 2.0 * b * n * DIM
+        prod = in_turns(kernel, plain, f"subtile_max f32 B={b} N={n} d={DIM} g={G}", flops,
+                        "TFLOP/s", n * DIM * 4)
+        gemm = lambda: torch.matmul(qc, index.emb.T)  # noqa: E731
+        gemm()
+        torch.cuda.synchronize()
+        gemm_ms = cuda_ms(gemm, 5)
+        report(f"GEMM alone, writes the scores: torch.matmul(q, x.T) f32 (TF32 off) B={b} "
+               f"N={n} {gemm_ms:.3f} ms (CUDA events, mean of 5), "
+               f"{flops / gemm_ms / 1e9:.1f} TFLOP/s; the kernel {prod['ms']:.3f} ms")
+        prod.update(max_abs_err=err, gemm_alone_ms=gemm_ms, library_ms=None,
+                    **bound(flops, H100_F32_PEAK, n * DIM * 4 + n + b * DIM * 4 + 4 * b * c))
+        got = ss.iterative_argmax_resid(sub, kq)
+        want = ss.iterative_argmax_resid_plain(sub, kq)
+        torch.cuda.synchronize()
+        same = select_equal(torch, got, want, c)
+        sel_err = float((got[2] - want[2]).abs().max())
+        report(f"select B={b} C={c} k={kq}: live picks, flags and residuals equal to the plain "
+               f"tournament's: {same}; max|residual - plain| = {sel_err:.3e}")
+        check(same, "graph: the select disagrees with its plain tournament")
+        sel = in_turns(lambda: ss.iterative_argmax_resid(sub, kq),
+                       lambda: ss.iterative_argmax_resid_plain(sub, kq),
+                       f"select B={b} C={c} k={kq}", b * c, "T entries/s", b * c * 4,
+                       "of sub-tile maxima")
+        sel.update(library_ms=library_ms(lambda: torch.topk(sub, kq, dim=1),
+                                         f"torch.topk(x, {kq}, dim=1) f32 B={b} C={c} (its "
+                                         f"own tie order)"), max_abs_err=sel_err,
+                   **bound(b * c, H100_F32_PEAK, b * c * 4 + b * kq * 9 + b * 4))
+    report(f"f32 producer at the chunk's shape: {prod['ms']:.3f} ms against its bound "
+           f"{prod['bound_ms']:.3f} ms ({prod['bound_by']}; share "
+           f"{prod['bound_ms'] / prod['ms']:.2f}); select {sel['ms']:.3f} ms against "
+           f"{sel['bound_ms']:.3f} ms")
+    del store, index, qc, sub
+    torch.cuda.empty_cache()
+
+    phase_graph_flow(torch, dev, tmp)
+    return {"subtile_max_f32": prod, "subtile_select": sel}
+
+
+def phase_graph_flow(torch, dev, tmp: Path) -> None:
+    """examples/graphrag_pipeline.py's flow: HyperRAG extraction over a
+    scripted FakeLLM, ``store_hyperrag_graph`` with the 768 x 12 encoder on
+    the card (embed, merge, event KNN), entity-linked retrieval, and a
+    snapshot round trip."""
+    from rag_arc_tpu_torch.graph.hyperrag import HyperRAGGraphExtractor
+    from rag_arc_tpu_torch.graph.store import ArrayGraphStore
+    from rag_arc_tpu_torch.llm.fake import FakeLLM
+    from rag_arc_tpu_torch.models.encoder import TransformerConfig
+    from rag_arc_tpu_torch.models.torch_embeddings import TorchEncoderEmbeddings
+    from rag_arc_tpu_torch.utils.data_model import Document
+
+    phase(f"graph flow: HyperRAGGraphExtractor over a scripted FakeLLM on {GRAPH_CHUNKS} "
+          f"chunks -> ArrayGraphStore with TorchEncoderEmbeddings 768 x 12 on the card")
+    chunks = graph_chunks(GRAPH_CHUNKS)
+
+    def script(messages, fmt):
+        text = messages[-1]["content"]
+        return graph_script(text, text.split("Extraction history (JSON):")[-1], fmt)
+
+    t0 = time.perf_counter()
+    extractor = HyperRAGGraphExtractor(FakeLLM(responder=script), max_rounds=2)
+    results = extractor([Document(content=c, id=f"chunk{i}") for i, c in enumerate(chunks)])
+    extract_s = time.perf_counter() - t0
+    emb = TorchEncoderEmbeddings(TransformerConfig(), seed=SEED, device=dev)
+    store = ArrayGraphStore(emb, device=dev)
+    t0 = time.perf_counter()
+    stats = store.store_hyperrag_graph(results)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    report(f"extraction {extract_s:.2f} s (host; {sum(r.rounds for r in results)} rounds); "
+           f"store_hyperrag_graph {store_s:.2f} s (embed + merge + event KNN): {stats}")
+    live = store.nodes["entity"]
+    keys = set().union(*store.nodes.values())
+    dangling = sum(1 for e in store.edges if e.src not in keys or e.dst not in keys)
+    check(stats["chunks"] == GRAPH_CHUNKS and stats["entities_merged"] > 0
+          and stats["similar_event_pairs"] > 0, "graph flow: no merge or no SIMILAR_TO edge")
+    check(all(" ".join(k.split()) not in live for k in live if "  " in k),
+          "graph flow: an alias survived beside its name")
+    check(dangling == 0, f"graph flow: {dangling} edges lost an endpoint")
+    queries = sorted({" ".join(k.split()) for k in live if not k.startswith("team")})[
+        :GRAPH_QUERIES]
+    t0 = time.perf_counter()
+    for q in queries:
+        (node, _), = store.search_nodes("entity", q, 1)
+        docs = store.entity_linked_chunks(q, k=5, entity_k=1)
+        word = re.compile(rf"\b{re.escape(q)}\b")
+        check(" ".join(node.content.split()).lower() == q and docs
+              and all(word.search(d.content.lower()) for d in docs),
+              f"graph flow: {q!r} linked to {node.content!r} and {[d.id for d in docs]}")
+    query_ms = (time.perf_counter() - t0) / len(queries) * 1e3
+    path = tmp / "graph.json"
+    t0 = time.perf_counter()
+    store.save(path)
+    back = ArrayGraphStore(emb, device=dev)
+    back.load(path)
+    snap_s = time.perf_counter() - t0
+    same = back.get_graph_statistics() == store.get_graph_statistics() and all(
+        [(n.key, round(s, 5)) for n, s in back.search_nodes(kind, q, 5)]
+        == [(n.key, round(s, 5)) for n, s in store.search_nodes(kind, q, 5)]
+        for kind in ("entity", "event", "chunk") for q in queries)
+    report(f"{len(queries)} entity-linked queries, {query_ms:.1f} ms each (host clock), each "
+           f"chunk mentions its entity; snapshot save + load {snap_s:.2f} s, statistics and "
+           f"search_nodes equal after the reload: {same}")
+    check(same, "graph flow: the reloaded snapshot answers differently")
+
+
+def phase_encoders(torch, dev) -> None:
+    """BERT at bert-base widths on the card against the CPU (f32), and
+    TextEncoderFast against TextEncoder on the same 768 x 12 weights."""
+    import dataclasses
+
+    from rag_arc_tpu_torch.models.bert import BertConfig, BertModel, init_bert
+    from rag_arc_tpu_torch.models.encoder import (TextEncoderFast, TransformerConfig,
+                                                  init_encoder)
+
+    phase(f"encoders: BertModel bert-base widths (768 x 12, 12 heads, 3072, vocab 30,522; "
+          f"seeded N(0, 0.02)) f32 B={BERT_B} L={BERT_L}; TextEncoderFast vs TextEncoder")
+    cfg = BertConfig()
+    host = init_bert(cfg, SEED, "cpu")
+    card = BertModel(cfg, device=dev).eval()
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BERT_B, BERT_L)))
+    lens = rng.integers(BERT_L // 4, BERT_L + 1, BERT_B)
+    lens[0] = BERT_L
+    mask = torch.from_numpy(np.arange(BERT_L)[None, :] < lens[:, None])
+    types_ = torch.from_numpy((np.arange(BERT_L)[None, :] >= lens[:, None] // 2).astype(
+        np.int64))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        h_cpu, p_cpu = host(ids, mask, types_)
+    cpu_s = time.perf_counter() - t0
+    ids_d, mask_d, types_d = ids.to(dev), mask.to(dev), types_.to(dev)
+    with torch.inference_mode():
+        h_gpu, p_gpu = card(ids_d, mask_d, types_d)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: card(ids_d, mask_d, types_d), 5)
+    live = mask.numpy()
+    err_h = float(np.abs(h_gpu.cpu().numpy()[live] - h_cpu.numpy()[live]).max())
+    err_p = float(np.abs(p_gpu.cpu().numpy() - p_cpu.numpy()).max())
+    flops = 2.0 * BERT_B * BERT_L * 12 * (4 * 768 * 768 + 2 * 768 * 3072) + \
+        4.0 * BERT_B * 12 * BERT_L * BERT_L * 768
+    report(f"bert f32 (TF32 off) B={BERT_B} L={BERT_L}: card {ms:.3f} ms a forward (CUDA "
+           f"events, mean of 5; {flops / ms / 1e9:.1f} TFLOP/s), CPU {cpu_s:.2f} s; "
+           f"max|card - CPU| hidden (live rows) {err_h:.3e}, pooler {err_p:.3e} (atol "
+           f"{BERT_TOL:g})")
+    check(err_h <= BERT_TOL and err_p <= BERT_TOL,
+          f"encoders: BERT on the card differs from the CPU by {max(err_h, err_p)}")
+    del host, card, h_gpu, p_gpu
+    torch.cuda.empty_cache()
+
+    ids = torch.from_numpy(rng.integers(4, 32768, (FAST_B, FAST_L))).to(dev)
+    lens = rng.integers(FAST_L // 4, FAST_L + 1, FAST_B)
+    mask = torch.from_numpy(np.arange(FAST_L)[None, :] < lens[:, None]).to(dev)
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        tcfg = dataclasses.replace(TransformerConfig(), dtype=dtype)
+        enc = init_encoder(tcfg, SEED, dev)
+        fast = TextEncoderFast(tcfg, device=dev).eval()
+        fast.load_state_dict(enc.state_dict())
+        with torch.inference_mode():
+            want, got = enc(ids, mask), fast(ids, mask)
+            torch.cuda.synchronize()
+            ms_ref = cuda_ms(lambda: enc(ids, mask), 5)
+            ms_fast = cuda_ms(lambda: fast(ids, mask), 5)
+        if name == "f32":
+            err = float((got - want).abs().max())
+            what = f"max|fast - ref| {err:.3e}"
+        else:
+            err = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+            what = f"max row |fast - ref| / |ref| {err:.3e}"
+        report(f"TextEncoderFast vs TextEncoder {name} 768 x 12 B={FAST_B} L={FAST_L}: {what} "
+               f"(bar {FAST_TOL[name]:g}); fast {ms_fast:.3f} ms, reference {ms_ref:.3f} ms "
+               f"a forward (CUDA events, mean of 5)")
+        check(err <= FAST_TOL[name], f"encoders: TextEncoderFast {name} off by {err}")
+        del enc, fast
+    torch.cuda.empty_cache()
+
+
 class Calls:
     """Counts the calls of one object's method while inside (from any
-    thread): a phase's own count of its dispatches or forwards."""
+    thread): a phase's own count of its dispatches or forwards; with
+    ``keep``, also their results in call order of return."""
 
-    def __init__(self, obj, name: str):
+    def __init__(self, obj, name: str, keep: bool = False):
         import threading
 
-        self.obj, self.name, self.n = obj, name, 0
+        self.obj, self.name, self.n, self.results = obj, name, 0, []
+        self.keep = keep
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -3553,7 +3978,11 @@ class Calls:
         def counted(*args, **kwargs):
             with self._lock:
                 self.n += 1
-            return method(*args, **kwargs)
+            out = method(*args, **kwargs)
+            if self.keep:
+                with self._lock:
+                    self.results.append(out)
+            return out
 
         setattr(self.obj, self.name, counted)
         return self
@@ -3618,6 +4047,21 @@ def main() -> int:
         phase_index_i8(torch, smi8, ss, dev, data)
         kernel_ivf, ivf_launches = phase_ivf(torch, isc, ss, dev, tmp)
         phase_hnsw(torch, dev, tmp)
+        # the graph and encoder phases: every count set to 0 just before each
+        # and read just after
+        for counter in counters.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        graph = phase_graph(torch, sm, ss, dev, tmp)
+        graph_launches = {name: counter.read() for name, counter in counters.items()}
+        report(f"graph phase {time.perf_counter() - t0:.1f} s; kernel launches on it (two "
+               f"merges, the event KNN, the flow): {graph_launches}")
+        for counter in counters.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        phase_encoders(torch, dev)
+        report(f"encoders phase {time.perf_counter() - t0:.1f} s; kernel launches on it: "
+               f"{ {name: counter.read() for name, counter in counters.items()} }")
         e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, ss, dev)
         i8_launches = phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts)
         hybrid_launches = phase_hybrid_retriever(torch, sm, ss, dev, store)
@@ -3652,7 +4096,8 @@ def main() -> int:
         {"name": "subtile_max", "route": "cuda", "source": src + "subtile_max.cu",
          "replaces": "rag_arc_tpu/ops/two_level_stream.py:140",
          "also_replaces": "rag_arc_tpu/ops/two_level.py:89",
-         "launches": e2e_launches["subtile_max"], **kernel},
+         "launches": e2e_launches["subtile_max"], **kernel,
+         "launches_graph": graph_launches["subtile_max"], "graph_f32": graph["subtile_max_f32"]},
         {"name": "subtile_max_l2", "route": "cuda", "source": src + "subtile_max.cu",
          "replaces": "rag_arc_tpu/ops/two_level.py:59",
          "launches": l2_launches, **kernel_l2},
@@ -3666,7 +4111,8 @@ def main() -> int:
          "launches": e2e_launches["subtile_select"],
          "launches_bm25_hybrid": bm25_launches,
          "launches_ivf": ivf_launches["subtile_select"],
-         "launches_hybrid_retriever": hybrid_launches, **kernel_select},
+         "launches_hybrid_retriever": hybrid_launches, **kernel_select,
+         "launches_graph": graph_launches["subtile_select"], "graph_chunk": graph["subtile_select"]},
         {"name": "rope_prep", "route": "cuda", "source": src + "rope_prep.cu",
          "replaces": "rag_arc_tpu/ops/rope_prep.py:52",
          "launches": rope_launches, **kernel_rope},

@@ -7,7 +7,10 @@
 - ``qwen3_state_dict_from_flax``: the ``FlaxQwen3LM`` tree
   (``rag_arc_tpu/models/qwen3.py``) → the port's ``Qwen3LM``;
 - ``qwen3_state_dict_from_hf``: an HF ``Qwen3ForCausalLM`` state_dict →
-  the port's ``Qwen3LM``.
+  the port's ``Qwen3LM``;
+- ``bert_state_dict_from_flax``: the ``FlaxBertModel`` tree
+  (``rag_arc_tpu/models/bert.py``) → the port's ``BertModel``, whose
+  names are HF's (an HF state_dict loads into it as it is).
 
 Flax trees come in as numpy arrays, so both packages run on identical
 weights; the bridges need numpy and torch only.
@@ -132,4 +135,34 @@ def qwen3_state_dict_from_hf(state_dict: Mapping[str, Any], cfg) -> Dict[str, to
                 [w(f"{pre}.mlp.gate_proj"), w(f"{pre}.mlp.up_proj")]),
             f"{pre}.down_proj.weight": w(f"{pre}.mlp.down_proj"),
         })
+    return out
+
+
+def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``FlaxBertModel`` params (the ``init`` result or
+    ``convert_torch_bert``'s, or its ``"params"`` entry) → the port's
+    ``BertModel`` state_dict (f32, HF names)."""
+    if "params" in params:
+        params = params["params"]
+    out = {
+        "embeddings.word_embeddings.weight": _tensor(params["tok"]["embedding"]),
+        "embeddings.position_embeddings.weight": _tensor(params["pos"]["embedding"]),
+        "embeddings.token_type_embeddings.weight": _tensor(params["typ"]["embedding"]),
+        **_layer("embeddings.LayerNorm", params["ln_embed"]),
+        **_layer("pooler.dense", params["pooler"]),
+    }
+    depth = sum(1 for name in params if name.startswith("layer_"))
+    names = {
+        "q": "attention.self.query",
+        "k": "attention.self.key",
+        "v": "attention.self.value",
+        "attn_out": "attention.output.dense",
+        "ln_attn": "attention.output.LayerNorm",
+        "intermediate": "intermediate.dense",
+        "output": "output.dense",
+        "ln_out": "output.LayerNorm",
+    }
+    for i in range(depth):
+        for flax_name, hf_name in names.items():
+            out.update(_layer(f"encoder.layer.{i}.{hf_name}", params[f"layer_{i}"][flax_name]))
     return out

@@ -16,7 +16,13 @@ modules so both packages produce the same vectors from the same weights:
 - GELU is the tanh approximation (Flax's ``nn.gelu`` default);
 - positions come from ``cumsum(mask) - 1``, not ``arange``.
 
-Neither has a hand-written kernel: both are plain PyTorch.
+``TextEncoderFast`` keeps the Flax package's name for its serving twin.
+The Flax ``FastBlock`` kept attention in (B, L, H, D) layout to spare the
+TPU a transpose; on the card that layout changes nothing, so here it is
+``TextEncoder`` itself, bidirectional whatever the config says (as the
+Flax ``TextEncoderFast`` is).
+
+None has a hand-written kernel: all are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -165,6 +171,15 @@ class TextEncoder(nn.Module):
         positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
         x = self.trunk(ids, positions, Trunk.mask_bias(mask, self.cfg.causal))
         return l2_normalize_rows(masked_mean_pool(x, mask))
+
+
+class TextEncoderFast(TextEncoder):
+    """The Flax ``TextEncoderFast``'s counterpart: a bidirectional
+    TextEncoder (a causal config still attends both ways). Same parameter
+    names, so a TextEncoder's state_dict loads as it is."""
+
+    def __init__(self, cfg: TransformerConfig, *, device: torch.device | str):
+        super().__init__(dataclasses.replace(cfg, causal=False), device=device)
 
 
 class CausalLM(nn.Module):

@@ -14,9 +14,9 @@ Port decisions:
   cannot re-derive Flax's seeded weights without JAX, so a document that
   names ``FLAX_EMBEDDINGS`` fails validation rather than silently serving
   other vectors.
-- The IVF and HNSW index types, the graph configs and the BM25 mesh
-  backend raise ``NotImplementedError`` naming the ROADMAP item that
-  ports them.
+- The graph configs build as the JAX package's do, the store on the
+  ``device`` passed down; the BM25 mesh backend raises
+  ``NotImplementedError`` naming the ROADMAP item that ports it ([#15]).
 """
 
 from __future__ import annotations
@@ -293,8 +293,23 @@ class GraphExtractorConfig(AbstractConfig):
     entity_types: Optional[List[str]] = None
 
     def build(self, **_: Any):
-        raise NotImplementedError(
-            "the graph extractor is not ported yet (ROADMAP Queue 1 [#14b])"
+        from rag_arc_tpu_torch.graph.hyperrag import HyperRAGGraphExtractor
+        from rag_arc_tpu_torch.graph.prompts import ExtractionPromptConfig
+
+        prompt = None
+        if self.event_types or self.entity_types:
+            kwargs = {}
+            if self.event_types:
+                kwargs["event_types"] = self.event_types
+            if self.entity_types:
+                kwargs["entity_types"] = self.entity_types
+            prompt = ExtractionPromptConfig(**kwargs)
+        return HyperRAGGraphExtractor(
+            self.llm.build(),
+            prompt=prompt,
+            max_rounds=self.max_rounds,
+            max_concurrent=self.max_concurrent,
+            clean=self.clean,
         )
 
 
@@ -306,10 +321,19 @@ class GraphStoreConfig(AbstractConfig):
     knn_cutoff: float = 0.85
     snapshot_path: Optional[str] = None
 
-    def build(self, **_: Any):
-        raise NotImplementedError(
-            "the graph store is not ported yet (ROADMAP Queue 1 [#14b])"
+    def build(self, device: str = "cuda", **_: Any):
+        from rag_arc_tpu_torch.graph.store import ArrayGraphStore
+
+        store = ArrayGraphStore(
+            self.embeddings.build(device=device),
+            merge_threshold=self.merge_threshold,
+            knn_top_k=self.knn_top_k,
+            knn_cutoff=self.knn_cutoff,
+            device=device,
         )
+        if self.snapshot_path:
+            store.load(self.snapshot_path)
+        return store
 
 
 # -- pipeline ----------------------------------------------------------------------

@@ -191,7 +191,17 @@ def test_port_imports_without_jax():
                      "rag_arc_tpu_torch.ops.ivf_scan",
                      "rag_arc_tpu_torch.index.ivf",
                      "rag_arc_tpu_torch.index.hnsw",
-                     "rag_arc_tpu_torch.tools.ivf_oracle"):
+                     "rag_arc_tpu_torch.tools.ivf_oracle",
+                     "rag_arc_tpu_torch.graph",
+                     "rag_arc_tpu_torch.graph.schema",
+                     "rag_arc_tpu_torch.graph.prompts",
+                     "rag_arc_tpu_torch.graph.extractor",
+                     "rag_arc_tpu_torch.graph.hyperrag",
+                     "rag_arc_tpu_torch.graph.store",
+                     "rag_arc_tpu_torch.graph.neo4j_store",
+                     "rag_arc_tpu_torch.models.bert",
+                     "rag_arc_tpu_torch.models.st_embeddings",
+                     "rag_arc_tpu_torch.tools.graph_merge_bench"):
             assert name in names, name
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax")))
         assert not bad, bad

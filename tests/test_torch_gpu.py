@@ -1521,3 +1521,66 @@ def test_select_at_the_shared_buffer_limit(cuda, k):
     wl = order.values[:, :k] > ss.NEG * 0.5
     _select_equal((gi, gl, gr), (order.indices[:, :k], wl,
                                  torch.clamp(order.values[:, k], min=ss.NEG)), c)
+
+
+# -- GraphRAG on the card: the merge's self-search, and BERT -------------------------
+
+
+def test_graph_merge_on_the_card_launches_both_kernels(cuda, monkeypatch):
+    """The hard merge corpus (n = 5,000, d = 64) with every self-search
+    chunk forced onto the two-level path: one f32 ``subtile_max`` and one
+    select launch a 4,096-query chunk; the pair set equals a CPU store's
+    (the plain versions) except at ties within 1e-5 of the threshold or of
+    a row's k-th score; with equal pairs the merges are equal; no dangling
+    edges, no entity self-loops."""
+    from rag_arc_tpu_torch.tools import graph_merge_bench as gmb
+
+    monkeypatch.setattr(DeviceFlatIndex, "_force_two_level", True)
+    corpus = gmb.hard_corpus(5000, 64, seed=0)
+    stores = [gmb.planted_store(corpus.names, corpus.vecs, device=dev, edges=corpus.edges)[0]
+              for dev in (cuda, "cpu")]
+    for store in stores:
+        store.generate_embeddings()
+    card, host = stores
+    assert card._indexes["entity"].emb.dtype == torch.float32
+    before = (sm.launches, ss.launches)
+    got = {(a, b): s for a, b, s in card._similar_pairs("entity", 0.95, 10)}
+    assert (sm.launches - before[0], ss.launches - before[1]) == (2, 2)
+    want = {(a, b): s for a, b, s in host._similar_pairs("entity", 0.95, 10)}
+    kth = {}
+    for store in stores:  # each row's 11th score: the top-k boundary
+        pos = store._positions["entity"]
+        index = store._indexes["entity"]
+        s, _ = index.search(index.take(np.asarray(list(pos.values()))), 11)
+        for key, row in zip(pos, s):
+            kth.setdefault(key, []).append(float(row[-1]))
+    for pair in set(got) ^ set(want):
+        score = got.get(pair, want.get(pair))
+        bounds = (0.95, *kth[pair[0]], *kth[pair[1]])
+        assert any(abs(score - v) <= 1e-5 for v in bounds), (pair, score)
+    assert all(abs(got[p] - want[p]) <= 1e-5 for p in set(got) & set(want))
+    merged = [store.merge_duplicate_entities() for store in stores]
+    report = gmb.hard_report(card, corpus)
+    assert report["dangling_edges"] == 0 and report["entity_self_loops"] == 0
+    if set(got) == set(want):
+        assert merged[0] == merged[1] and report == gmb.hard_report(host, corpus)
+
+
+def test_bert_on_the_card_matches_the_cpu(cuda):
+    """f32 BERT (TF32 off) on the card against the same weights on the CPU."""
+    from rag_arc_tpu_torch.models.bert import BertConfig, BertModel, init_bert
+
+    cfg = BertConfig(vocab_size=1000, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512, max_position_embeddings=64)
+    host = init_bert(cfg, 0, "cpu")
+    card = BertModel(cfg, device=cuda).eval()
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 1000, (8, 48)))
+    mask = torch.from_numpy(np.arange(48)[None, :] < rng.integers(8, 49, 8)[:, None])
+    with torch.no_grad():
+        h_cpu, p_cpu = host(ids, mask)
+        h_gpu, p_gpu = card(ids.to(cuda), mask.to(cuda))
+    live = mask.numpy()
+    np.testing.assert_allclose(h_gpu.cpu().numpy()[live], h_cpu.numpy()[live], atol=1e-4)
+    np.testing.assert_allclose(p_gpu.cpu().numpy(), p_cpu.numpy(), atol=1e-4)

@@ -512,12 +512,19 @@ def test_config_refusals_and_device():
             {"type": "PIPELINE", "retriever": retriever, "device": "cpu"})
         with pytest.raises(NotImplementedError, match=match):
             cfg.build()
+    # the graph configs build (the store on the device passed down) and answer
+    from rag_arc_tpu_torch.graph.extractor import ExtractionResult
     from rag_arc_tpu_torch.serving.configs import GraphExtractorConfig, GraphStoreConfig
 
-    for cfg in (GraphExtractorConfig.model_validate({"llm": {"type": "FAKE_LLM"}}),
-                GraphStoreConfig.model_validate({"embeddings": dense["embeddings"]})):
-        with pytest.raises(NotImplementedError, match=r"\[#14b\]"):
-            cfg.build()
+    extractor = GraphExtractorConfig.model_validate({"llm": {"type": "FAKE_LLM"}}).build()
+    results = extractor([Document(content="graph text one", id="g1")])
+    assert results[0].rounds >= 1
+    graph = GraphStoreConfig.model_validate({"embeddings": dense["embeddings"]}).build(
+        device="cpu")
+    assert graph.device == torch.device("cpu")
+    stats = graph.store_hyperrag_graph(
+        [ExtractionResult(document=r.document, knowledge=r.knowledge) for r in results])
+    assert stats["chunks"] == 1 and graph.health_check()["status"] == "ok"
     cfg = PipelineConfig.model_validate({"type": "PIPELINE", "retriever": dict(
         dense, embeddings={"type": "TORCH_EMBEDDINGS", "dim": 32, "depth": 1, "heads": 2,
                            "vocab_size": 128, "max_len": 32}, dtype="bfloat16")})
