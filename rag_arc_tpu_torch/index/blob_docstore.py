@@ -44,6 +44,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from rag_arc_tpu_torch.utils.data_model import Document
+from rag_arc_tpu_torch.utils.tracing import stage
 
 _MERGE_THRESHOLD = 65536  # pending id->pos entries before a sorted merge
 
@@ -158,6 +159,10 @@ class BlobDocstore:
         return self.position_of(doc_id) is not None
 
     def add(self, documents: Sequence[Document], positions: Sequence[int]) -> List[str]:
+        with stage("docstore.add", rows=len(documents)):
+            return self._add(documents, positions)
+
+    def _add(self, documents: Sequence[Document], positions: Sequence[int]) -> List[str]:
         if len(documents) != len(positions):
             raise ValueError("documents and positions length mismatch")
         if not documents:

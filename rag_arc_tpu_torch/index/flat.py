@@ -272,7 +272,12 @@ class DeviceFlatIndex:
     # -- mutation ---------------------------------------------------------
 
     def add(self, vectors: np.ndarray) -> np.ndarray:
-        """Append rows; returns their positions (shape (n,))."""
+        """Append rows; returns their positions (shape (n,)). An
+        ``index.add`` span: host normalization, quantization, the upload."""
+        with stage("index.add", rows=len(vectors)):
+            return self._add(vectors)
+
+    def _add(self, vectors: np.ndarray) -> np.ndarray:
         vectors = np.asarray(vectors, dtype=np.float32)
         if vectors.ndim != 2 or vectors.shape[1] != self.dim:
             raise ValueError(f"expected (n, {self.dim}) vectors, got {vectors.shape}")
@@ -460,25 +465,30 @@ class DeviceFlatIndex:
         """Device-to-device search: ``q`` is a (B, dim) tensor on the
         index's device and the results stay there. Empty slots carry -inf
         (direct path) or NEG (two-level path) at position -1 or a masked
-        position; the host boundary normalizes both."""
-        if self.quantized:
-            kf = self._kf(k)
-            if self.device.type == "cuda" or self._two_level(q.shape[0]):
-                s, p = two_level_topk_i8(
-                    q, self.emb, self.sqnorm, self.valid, kf,
-                    g=self.SUBTILE_G, block_scales=True,
-                )
-            else:
-                s, p = _i8_topk_direct(q, self.emb, self.sqnorm, self.valid, kf)
-            if kf > k:
-                s, p = self.rescore_candidates(q, s, p, k)
-            return self._ip_unscale(q, s), p
-        if not self._two_level(q.shape[0]):
-            return masked_topk(q, self.emb, self.valid, k, self.metric, self.sqnorm)
-        return two_level_topk(
-            q, self.emb, self.valid, k, g=self.SUBTILE_G, metric=self.metric,
-            sqnorm=self.sqnorm,
-        )
+        position; the host boundary normalizes both. An ``index.search``
+        span (the host's enqueue) counts the path, queries and rows."""
+        b = q.shape[0]
+        two_level = self._two_level(b) or (self.quantized and self.device.type == "cuda")
+        with stage("index.search", path="two_level" if two_level else "direct", queries=b,
+                   rows=self.n_active):
+            if self.quantized:
+                kf = self._kf(k)
+                if two_level:
+                    s, p = two_level_topk_i8(
+                        q, self.emb, self.sqnorm, self.valid, kf,
+                        g=self.SUBTILE_G, block_scales=True,
+                    )
+                else:
+                    s, p = _i8_topk_direct(q, self.emb, self.sqnorm, self.valid, kf)
+                if kf > k:
+                    s, p = self.rescore_candidates(q, s, p, k)
+                return self._ip_unscale(q, s), p
+            if not two_level:
+                return masked_topk(q, self.emb, self.valid, k, self.metric, self.sqnorm)
+            return two_level_topk(
+                q, self.emb, self.valid, k, g=self.SUBTILE_G, metric=self.metric,
+                sqnorm=self.sqnorm,
+            )
 
     def _kf(self, k: int) -> int:
         """Candidate over-fetch of the quantized search (``kf_mult``·k with

@@ -355,7 +355,15 @@ class TorchVectorStore(VectorStore):
     def add_documents(
         self, documents: Sequence[Document], ids: Optional[Sequence[str]] = None
     ) -> List[str]:
+        """Encode, then add to the index and the docstore under the write
+        lock: a ``store.add`` span, the root of the ingest path's spans."""
         documents = list(documents)
+        with stage("store.add", docs=len(documents)):
+            return self._add_documents(documents, ids)
+
+    def _add_documents(
+        self, documents: List[Document], ids: Optional[Sequence[str]]
+    ) -> List[str]:
         if ids is not None:
             if len(ids) != len(documents):
                 raise ValueError("ids and documents length mismatch")
@@ -472,13 +480,16 @@ class TorchVectorStore(VectorStore):
     def _resolve(
         self, scores: np.ndarray, positions: np.ndarray
     ) -> List[Tuple[Document, float]]:
-        out: List[Tuple[Document, float]] = []
-        for score, pos in zip(scores, positions):
-            if pos < 0:
-                continue
-            doc = self.docstore.get_by_position(int(pos))
-            if doc is not None:
-                out.append((doc, float(score)))
+        """One query's hits through the docstore (a ``store.resolve`` span)."""
+        with stage("store.resolve") as span:
+            out: List[Tuple[Document, float]] = []
+            for score, pos in zip(scores, positions):
+                if pos < 0:
+                    continue
+                doc = self.docstore.get_by_position(int(pos))
+                if doc is not None:
+                    out.append((doc, float(score)))
+            span["hits"] = len(out)
         return out
 
     def similarity_search_with_score(

@@ -7,6 +7,11 @@ to a length bucket (``TextEncoder``). Newlines are stripped before
 encoding. Tokenization and packing use the port's copies of
 ``HashTokenizer`` and ``pack_token_lists`` (``models/tokenizer.py``,
 ``models/packing.py``).
+
+Spans (``utils/tracing.py``): ``encoder.tokenize``; ``encoder.pack``,
+packing and each chunk's host padding, with ``tokens`` (real tokens) and
+``slots`` (the token slots the forward runs); ``encoder.forward`` (a
+chunk's uploads and launches); ``encoder.readback``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from rag_arc_tpu_torch.models.encoder import (
     TransformerConfig,
     init_encoder,
 )
+from rag_arc_tpu_torch.utils.tracing import stage
 
 LENGTH_BUCKETS = (16, 32, 64, 128, 256, 512)
 PACK_MAX_TOKENS = 64
@@ -101,14 +107,15 @@ class TorchEncoderEmbeddings(Embeddings):
         return 1 << math.ceil(math.log2(max(n, 1)))
 
     def _token_lists(self, texts: List[str]) -> List[List[int]]:
-        if hasattr(self.tokenizer, "encode"):
-            return [self.tokenizer.encode(t) for t in texts]
-        out: List[List[int]] = []
-        for start in range(0, len(texts), 256):
-            chunk = texts[start : start + 256]
-            ids, mask = self.tokenizer.batch_encode(chunk)
-            out.extend(ids[i, mask[i]].tolist() for i in range(len(chunk)))
-        return out
+        with stage("encoder.tokenize"):
+            if hasattr(self.tokenizer, "encode"):
+                return [self.tokenizer.encode(t) for t in texts]
+            out: List[List[int]] = []
+            for start in range(0, len(texts), 256):
+                chunk = texts[start : start + 256]
+                ids, mask = self.tokenizer.batch_encode(chunk)
+                out.extend(ids[i, mask[i]].tolist() for i in range(len(chunk)))
+            return out
 
     def encode(self, texts: List[str]) -> np.ndarray:
         if not texts:
@@ -132,18 +139,20 @@ class TorchEncoderEmbeddings(Embeddings):
     def _encode_packed(self, token_lists: List[List[int]]) -> np.ndarray:
         """Short docs: several to a row, block-diagonal attention, segment
         pooling; one readback per window of chunks."""
-        ids, pos, seg, mapping = pack_token_lists(
-            token_lists, row_len=PACK_ROW_LEN, max_segments=PACK_MAX_SEGMENTS
-        )
+        with stage("encoder.pack"):
+            ids, pos, seg, mapping = pack_token_lists(
+                token_lists, row_len=PACK_ROW_LEN, max_segments=PACK_MAX_SEGMENTS
+            )
+            map_rows = np.asarray([r for r, _ in mapping], dtype=np.int64)
+            map_segs = np.asarray([s for _, s in mapping], dtype=np.int64)
         n_rows = ids.shape[0]
         rows_per = max(self.batch_size, 65536 // PACK_ROW_LEN)
         out = np.empty((len(token_lists), self.dim), dtype=np.float32)
-        map_rows = np.asarray([r for r, _ in mapping], dtype=np.int64)
-        map_segs = np.asarray([s for _, s in mapping], dtype=np.int64)
         window: list = []
 
         def drain() -> None:
-            fetched = torch.cat([o for o, _, _ in window]).cpu().numpy()
+            with stage("encoder.readback"):
+                fetched = torch.cat([o for o, _, _ in window]).cpu().numpy()
             offset = 0
             for _, start, r in window:
                 sel = np.nonzero((map_rows >= start) & (map_rows < start + r))[0]
@@ -152,19 +161,23 @@ class TorchEncoderEmbeddings(Embeddings):
             window.clear()
 
         for start in range(0, n_rows, rows_per):
-            cids = ids[start : start + rows_per]
-            cpos = pos[start : start + rows_per]
-            cseg = seg[start : start + rows_per]
-            r = cids.shape[0]
-            r_pad = self._pad_count(r)
-            if r_pad > r:
-                cids = np.pad(cids, ((0, r_pad - r), (0, 0)))
-                cpos = np.pad(cpos, ((0, r_pad - r), (0, 0)))
-                cseg = np.pad(cseg, ((0, r_pad - r), (0, 0)), constant_values=-1)
-            emb = self.packed_model(
-                self._upload(cids).long(), self._upload(cpos).long(),
-                self._upload(cseg).long(),
-            )
+            with stage("encoder.pack") as span:
+                cids = ids[start : start + rows_per]
+                cpos = pos[start : start + rows_per]
+                cseg = seg[start : start + rows_per]
+                r = cids.shape[0]
+                span["tokens"] = int(np.count_nonzero(cseg >= 0))
+                r_pad = self._pad_count(r)
+                if r_pad > r:
+                    cids = np.pad(cids, ((0, r_pad - r), (0, 0)))
+                    cpos = np.pad(cpos, ((0, r_pad - r), (0, 0)))
+                    cseg = np.pad(cseg, ((0, r_pad - r), (0, 0)), constant_values=-1)
+                span["slots"] = cids.size
+            with stage("encoder.forward"):
+                emb = self.packed_model(
+                    self._upload(cids).long(), self._upload(cpos).long(),
+                    self._upload(cseg).long(),
+                )
             window.append((emb[:r], start, r))
             if len(window) >= MAX_INFLIGHT_CHUNKS:
                 drain()
@@ -179,7 +192,8 @@ class TorchEncoderEmbeddings(Embeddings):
         window: list = []
 
         def drain() -> None:
-            fetched = torch.cat([e for _, _, e in window]).cpu().numpy()
+            with stage("encoder.readback"):
+                fetched = torch.cat([e for _, _, e in window]).cpu().numpy()
             offset = 0
             for start, n, _ in window:
                 out[start : start + n] = fetched[offset : offset + n]
@@ -187,16 +201,21 @@ class TorchEncoderEmbeddings(Embeddings):
             window.clear()
 
         for start in range(0, len(token_lists), bs):
-            chunk = token_lists[start : start + bs]
-            length = self._bucket_len(max(len(tl) for tl in chunk))
-            b_pad = self._pad_count(len(chunk))
-            ids2 = np.zeros((b_pad, length), dtype=np.int64)
-            mask2 = np.zeros((b_pad, length), dtype=bool)
-            for i, tl in enumerate(chunk):
-                tl = tl[:length]
-                ids2[i, : len(tl)] = tl
-                mask2[i, : len(tl)] = True
-            emb = self.model(self._upload(ids2), self._upload(mask2))
+            with stage("encoder.pack") as span:
+                chunk = token_lists[start : start + bs]
+                length = self._bucket_len(max(len(tl) for tl in chunk))
+                b_pad = self._pad_count(len(chunk))
+                ids2 = np.zeros((b_pad, length), dtype=np.int64)
+                mask2 = np.zeros((b_pad, length), dtype=bool)
+                tokens = 0
+                for i, tl in enumerate(chunk):
+                    tl = tl[:length]
+                    ids2[i, : len(tl)] = tl
+                    mask2[i, : len(tl)] = True
+                    tokens += len(tl)
+                span["tokens"], span["slots"] = tokens, ids2.size
+            with stage("encoder.forward"):
+                emb = self.model(self._upload(ids2), self._upload(mask2))
             window.append((start, len(chunk), emb[: len(chunk)]))
             if len(window) >= MAX_INFLIGHT_CHUNKS:
                 drain()

@@ -25,6 +25,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from rag_arc_tpu_torch.utils.tracing import stage
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -102,10 +104,12 @@ def build(name: str, csrc: Path = CSRC_DIR) -> Built:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True, check=False,
-        )
+        # a build inside a served window is a stall: it shows as a span
+        with stage("kernel.build", kernel=name):
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                capture_output=True, text=True, check=False,
+            )
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)

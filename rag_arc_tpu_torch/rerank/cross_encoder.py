@@ -13,12 +13,17 @@ does not depend on what it is batched with.
 The scorer is the default ``CausalLM`` (``models/encoder.py``) or any
 model with ``last_logits`` — ``Qwen3LM`` (``models/qwen3.py``), whose
 attention runs the ``rope_prep`` and flash-attention kernels on the card.
+
+Spans (``utils/tracing.py``): ``rerank.prompts`` (rendering and the
+bucketed tokenization, with ``tokens``, the real prompt tokens, and
+``slots``, the token slots the forward runs), ``rerank.forward`` (the
+chunks' uploads and launches) and ``rerank.readback``, each with ``pairs``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
 from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.models.encoder import CausalLM, TransformerConfig, init_causal_lm
 from rag_arc_tpu_torch.rerank.base import RerankerBase
+from rag_arc_tpu_torch.utils.tracing import stage
 
 # copied letter for letter from rag_arc_tpu/rerank/cross_encoder.py, whose
 # module imports JAX
@@ -161,11 +167,14 @@ class CrossEncoderReranker(RerankerBase):
         )
 
     @torch.inference_mode()
-    def _score_prompts(self, prompts: Sequence[str]) -> np.ndarray:
-        """Encode → chunk at the attention byte budget → dispatch every
-        chunk → one readback. The single scoring path of both entry
-        points."""
-        ids, mask = self._encode_bucketed(prompts)
+    def _score_prompts(self, prompts: Iterable[str]) -> np.ndarray:
+        """Render (``prompts`` may be a lazy iterable) and encode → chunk at
+        the attention byte budget → dispatch every chunk → one readback.
+        The single scoring path of both entry points."""
+        with stage("rerank.prompts") as span:
+            prompts = list(prompts)
+            ids, mask = self._encode_bucketed(prompts)
+            span["pairs"], span["tokens"], span["slots"] = len(prompts), int(mask.sum()), ids.size
         n, length = len(prompts), ids.shape[1]
         heads = (
             getattr(self.cfg, "heads", None)
@@ -174,20 +183,22 @@ class CrossEncoderReranker(RerankerBase):
         )
         max_chunk = max(64, self.ATTN_BYTES_BUDGET // (heads * length * length * 4))
         max_chunk = 1 << int(math.floor(math.log2(max_chunk)))
-        ids_d = torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
-        mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
-        pending = [
-            _score_batch(self.model, ids_d[lo : lo + max_chunk], mask_d[lo : lo + max_chunk],
-                         self.yes_id, self.no_id)
-            for lo in range(0, n, max_chunk)
-        ]
-        return torch.cat(pending).cpu().numpy()
+        with stage("rerank.forward", pairs=n):
+            ids_d = torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
+            mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
+            pending = [
+                _score_batch(self.model, ids_d[lo : lo + max_chunk],
+                             mask_d[lo : lo + max_chunk], self.yes_id, self.no_id)
+                for lo in range(0, n, max_chunk)
+            ]
+        with stage("rerank.readback", pairs=n):
+            return torch.cat(pending).cpu().numpy()
 
     def compute_scores(self, query: str, documents: Sequence[Document]) -> np.ndarray:
         """P(yes) of every candidate, in one scoring pass."""
         if not documents:
             return np.empty((0,), dtype=np.float32)
-        return self._score_prompts([self._render(query, d.content) for d in documents])
+        return self._score_prompts(self._render(query, d.content) for d in documents)
 
     def rerank(
         self, query: str, documents: Sequence[Document], k: Optional[int] = None, **_: Any
@@ -207,13 +218,18 @@ class CrossEncoderReranker(RerankerBase):
         if len(queries) != len(documents_per_query):
             raise ValueError("queries and candidate lists length mismatch")
         spans: List[tuple[int, int]] = []
-        prompts: List[str] = []
-        for query, docs in zip(queries, documents_per_query):
-            spans.append((len(prompts), len(prompts) + len(docs)))
-            prompts.extend(self._render(query, doc.content) for doc in docs)
-        if not prompts:
+        n = 0
+        for docs in documents_per_query:
+            spans.append((n, n + len(docs)))
+            n += len(docs)
+        if not n:
             return [[] for _ in queries]
-        scores = self._score_prompts(prompts)
+        # rendered lazily, inside the rerank.prompts span
+        scores = self._score_prompts(
+            self._render(query, doc.content)
+            for query, docs in zip(queries, documents_per_query)
+            for doc in docs
+        )
         return [
             self._sorted(list(docs), scores[lo:hi], k)
             for (lo, hi), docs in zip(spans, documents_per_query)

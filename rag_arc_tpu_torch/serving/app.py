@@ -30,8 +30,13 @@ from typing import Any, Dict, Optional
 
 from rag_arc_tpu_torch.serving.pipeline import RagPipeline
 from rag_arc_tpu_torch.utils.data_model import Document
+from rag_arc_tpu_torch.utils.tracing import new_id, stage
 
 logger = logging.getLogger(__name__)
+
+
+class _BadRequest(ValueError):
+    """A request that fails validation: answered 400 with its message."""
 
 
 def _doc_json(doc: Document) -> Dict[str, Any]:
@@ -55,23 +60,38 @@ def _doc_serializer(payload: Dict[str, Any]):
         return _doc_ids_json
     if mode == "full":
         return _doc_json
-    raise ValueError(f"response must be 'full' or 'ids', got {mode!r}")
+    raise _BadRequest(f"response must be 'full' or 'ids', got {mode!r}")
 
 
 class RagRequestHandler(BaseHTTPRequestHandler):
+    """Each POST runs in an ``http.request`` span under a new request id:
+    ``http.parse`` (body read, JSON, validation), the pipeline's work,
+    then ``http.serialise`` (document JSON, ``json.dumps``, the write)."""
+
     pipeline: RagPipeline  # class attribute installed by make_server
     protocol_version = "HTTP/1.1"  # keep-alive: no per-request socket churn
 
     def log_message(self, fmt, *args):  # route through logging, not stderr
         logger.debug("http: " + fmt, *args)
 
-    def _send(self, code: int, payload: Dict[str, Any]) -> None:
-        body = json.dumps(payload, ensure_ascii=False).encode("utf-8")
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+    def _send(self, code: int, payload) -> None:
+        """``payload``: a dict, or a callable that builds it (the document
+        JSON, timed as serialisation)."""
+        with stage("http.serialise") as span:
+            try:
+                if callable(payload):
+                    payload = payload()
+                body = json.dumps(payload, ensure_ascii=False).encode("utf-8")
+            except Exception as exc:  # noqa: BLE001 — HTTP boundary
+                logger.exception("request failed")
+                code = 500
+                body = json.dumps({"error": str(exc)}, ensure_ascii=False).encode("utf-8")
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            span["bytes"] = len(body)
 
     def _read_json(self) -> Dict[str, Any]:
         length = int(self.headers.get("Content-Length", 0))
@@ -86,84 +106,75 @@ class RagRequestHandler(BaseHTTPRequestHandler):
             self._send(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self):  # noqa: N802
-        try:
-            payload = self._read_json()
-            if self.path == "/query":
+        with stage("http.request", request=new_id(), route=self.path) as request:
+            try:
+                code, payload = self._post(request)
+            except _BadRequest as exc:
+                code, payload = 400, {"error": str(exc)}
+            except Exception as exc:  # noqa: BLE001 — HTTP boundary
+                logger.exception("request failed")
+                code, payload = 500, {"error": str(exc)}
+            self._send(code, payload)
+
+    def _post(self, request: Dict[str, Any]):
+        """(status, payload) of a POST; a validation failure raises
+        ``_BadRequest``."""
+        if self.path == "/query":
+            with stage("http.parse"):
+                payload = self._read_json()
                 # validate THIS request before it coalesces: an empty
                 # query would fail invoke_batch's whole-batch validation
                 # and 500 every other user's in-flight request
                 query = payload.get("query", "")
                 if not isinstance(query, str) or not query.strip():
-                    self._send(400, {"error": "query must be a non-empty string"})
-                    return
-                try:
-                    ser = _doc_serializer(payload)
-                except ValueError as exc:
-                    self._send(400, {"error": str(exc)})
-                    return
-                docs = self.pipeline.query(query, k=payload.get("k"))
-                self._send(200, {"documents": [ser(d) for d in docs]})
-            elif self.path == "/batch":
+                    raise _BadRequest("query must be a non-empty string")
+                ser = _doc_serializer(payload)
+            request["queries"] = 1
+            docs = self.pipeline.query(query, k=payload.get("k"))
+            return 200, lambda: {"documents": [ser(d) for d in docs]}
+        if self.path == "/batch":
+            with stage("http.parse"):
+                payload = self._read_json()
                 queries = payload.get("queries", [])
                 # a bare string would pass the element check char-by-char
                 # and fan out one search per character — require a list
                 if not isinstance(queries, list) or not all(
                     isinstance(q, str) and q.strip() for q in queries
                 ):
-                    self._send(
-                        400, {"error": "queries must be a list of non-empty strings"}
-                    )
-                    return
-                try:
-                    ser = _doc_serializer(payload)
-                except ValueError as exc:
-                    self._send(400, {"error": str(exc)})
-                    return
-                results = self.pipeline.query_batch_shared(
-                    queries, k=payload.get("k")
-                )
-                self._send(
-                    200,
-                    {"results": [[ser(d) for d in docs] for docs in results]},
-                )
-            elif self.path == "/add":
+                    raise _BadRequest("queries must be a list of non-empty strings")
+                ser = _doc_serializer(payload)
+            request["queries"] = len(queries)
+            results = self.pipeline.query_batch_shared(queries, k=payload.get("k"))
+            return 200, lambda: {"results": [[ser(d) for d in docs] for docs in results]}
+        if self.path == "/add":
+            with stage("http.parse"):
+                payload = self._read_json()
                 retriever = self.pipeline.retriever
                 add = getattr(retriever, "add_documents", None)
                 if add is None:
-                    self._send(400, {"error": "retriever does not support adds"})
-                    return
+                    raise _BadRequest("retriever does not support adds")
                 texts = payload["texts"]
                 if not isinstance(texts, list) or not all(
                     isinstance(t, str) for t in texts
                 ):
-                    self._send(400, {"error": "texts must be a list of strings"})
-                    return
+                    raise _BadRequest("texts must be a list of strings")
                 metadatas = payload.get("metadatas") or [{}] * len(texts)
                 if len(metadatas) != len(texts):
                     # zip truncation would silently drop documents
-                    self._send(
-                        400,
-                        {"error": "texts and metadatas length mismatch"},
-                    )
-                    return
+                    raise _BadRequest("texts and metadatas length mismatch")
                 docs = [
                     Document(content=t, metadata=dict(m))
                     for t, m in zip(texts, metadatas)
                 ]
-                ids = add(docs)
-                self._send(200, {"ids": ids})
-            elif self.path == "/delete":
-                retriever = self.pipeline.retriever
-                delete = getattr(retriever, "delete", None)
+            return 200, {"ids": add(docs)}
+        if self.path == "/delete":
+            with stage("http.parse"):
+                payload = self._read_json()
+                delete = getattr(self.pipeline.retriever, "delete", None)
                 if delete is None:
-                    self._send(400, {"error": "retriever does not support deletes"})
-                    return
-                self._send(200, {"deleted": bool(delete(payload.get("ids", [])))})
-            else:
-                self._send(404, {"error": f"unknown path {self.path}"})
-        except Exception as exc:  # noqa: BLE001 — HTTP boundary
-            logger.exception("request failed")
-            self._send(500, {"error": str(exc)})
+                    raise _BadRequest("retriever does not support deletes")
+            return 200, {"deleted": bool(delete(payload.get("ids", [])))}
+        return 404, {"error": f"unknown path {self.path}"}
 
 
 class _RagHTTPServer(ThreadingHTTPServer):

@@ -20,6 +20,11 @@ into one dispatch. ``QueryBatcher`` coalesces adaptively:
   batched QPS with no tuning.
 
 (SURVEY.md §7 "throughput vs latency batching" hard part.)
+
+Each submit stamps its queries with the time and the submitting
+request's span context (``utils/tracing.py``); the batch thread records
+their ``batcher.wait`` spans (submit to the start of their batch) and
+runs the batch under its batch id and the ids of the requests it serves.
 """
 
 from __future__ import annotations
@@ -30,13 +35,24 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from rag_arc_tpu_torch.utils import tracing
+
 logger = logging.getLogger(__name__)
+
+
+@dataclass
+class _Submit:
+    """One submit call: when, and under which request's span."""
+
+    t_ns: int = field(default_factory=time.time_ns)
+    ctx: Optional[tuple] = field(default_factory=tracing.current)
 
 
 @dataclass
 class _Pending:
     query: str
     kwargs: tuple
+    origin: _Submit = field(default_factory=_Submit)
     event: threading.Event = field(default_factory=threading.Event)
     result: Any = None
     error: Optional[BaseException] = None
@@ -111,7 +127,8 @@ class QueryBatcher:
             hash(kw)
         except TypeError as exc:
             raise TypeError(f"batcher kwargs must be hashable: {exc}") from exc
-        pendings = [_Pending(query=q, kwargs=kw) for q in queries]
+        origin = _Submit()
+        pendings = [_Pending(query=q, kwargs=kw, origin=origin) for q in queries]
         if not pendings:
             return []
         with self._lock:
@@ -171,6 +188,15 @@ class QueryBatcher:
                 p.event.set()
 
     def _run_batch(self, batch: List[_Pending]) -> None:
+        batch_id = tracing.new_id()
+        started = time.time_ns()
+        origins: Dict[int, List[Any]] = {}
+        for p in batch:
+            origins.setdefault(id(p.origin), [p.origin, 0])[1] += 1
+        for origin, n in origins.values():
+            tracing.record_span("batcher.wait", origin.t_ns, started, parent=origin.ctx,
+                                batch=batch_id, queries=n)
+        requests = [o.ctx[1] for o, _ in origins.values() if o.ctx is not None]
         try:
             # group by kwargs signature so mixed-parameter requests stay
             # correct
@@ -179,9 +205,10 @@ class QueryBatcher:
                 groups.setdefault(p.kwargs, []).append(p)
             for kwargs_sig, group in groups.items():
                 try:
-                    results = self.batch_fn(
-                        [p.query for p in group], **dict(kwargs_sig)
-                    )
+                    with tracing.bind(request=requests, batch=batch_id):
+                        results = self.batch_fn(
+                            [p.query for p in group], **dict(kwargs_sig)
+                        )
                     if len(results) != len(group):
                         # zip would silently hand trailing callers None
                         raise RuntimeError(

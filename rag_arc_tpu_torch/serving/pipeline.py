@@ -16,8 +16,6 @@ failed warm-up batch is a kernel that did not build or launch.
 
 from __future__ import annotations
 
-import threading
-import time
 from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
 
 from rag_arc_tpu_torch.rerank.base import RerankerBase
@@ -52,14 +50,16 @@ class RagPipeline:
         self.batcher = QueryBatcher(
             self._answer_batch, max_batch=batch_max, max_wait_ms=batch_wait_ms
         )
-        self.metrics: Dict[str, float] = {"queries": 0, "total_ms": 0.0}
-        self._metrics_lock = threading.Lock()
 
     # -- core --------------------------------------------------------------
 
     def _answer_batch(self, queries: Sequence[str], k: Optional[int] = None) -> List[List[Document]]:
-        k = self.top_k if k is None else int(k)
-        t0 = time.time()
+        """One batch, in a ``pipeline.batch`` span (its batch and request
+        ids come from the batcher that runs it)."""
+        with stage("pipeline.batch", queries=len(queries)):
+            return self._answer(queries, self.top_k if k is None else int(k))
+
+    def _answer(self, queries: Sequence[str], k: int) -> List[List[Document]]:
         if self.rewriter is not None:
             # expand every query, answer ALL variants in one dispatch, fuse
             # per original query
@@ -98,14 +98,7 @@ class RagPipeline:
                         self.reranker.rerank(q, docs, k=k)
                         for q, docs in zip(queries, candidates)
                     ]
-        out = [docs[:k] for docs in candidates]
-        elapsed = (time.time() - t0) * 1e3
-        with self._metrics_lock:
-            # several batcher threads can finish at once (continuous
-            # batching) — unlocked += loses updates
-            self.metrics["queries"] += len(queries)
-            self.metrics["total_ms"] += elapsed
-        return out
+        return [docs[:k] for docs in candidates]
 
     # -- public API ----------------------------------------------------------
 
@@ -144,36 +137,34 @@ class RagPipeline:
         if self.rewriter is not None or dispatch is None:
             return [self._answer_batch(b, k=k) for b in batches]
         recall = self.recall_k if self.reranker else k
-        t0 = time.time()
-        with stage("pipeline.retrieve"), transfer_pool():
-            fetches = [dispatch(b, k=recall) for b in batches]
-            if any(f is None for f in fetches):
-                return [self._answer_batch(b, k=k) for b in batches]
-            # force every lazy device launch (BM25 coalescer) into the
-            # pool BEFORE the first fetch: the whole stream's readbacks
-            # then collapse to ONE device_get round trip
-            for f in fetches:
-                p = getattr(f, "prime", None)
-                if p is not None:
-                    p()
-            candidates = [f() for f in fetches]
-        out: List[List[List[Document]]] = []
-        for queries, cands in zip(batches, candidates):
-            if self.reranker is not None:
-                with stage("pipeline.rerank"):
-                    batch_rerank = getattr(self.reranker, "rerank_batch", None)
-                    if batch_rerank is not None:
-                        cands = batch_rerank(queries, cands, k=k)
-                    else:
-                        cands = [
-                            self.reranker.rerank(q, docs, k=k)
-                            for q, docs in zip(queries, cands)
-                        ]
-            out.append([docs[:k] for docs in cands])
-        elapsed = (time.time() - t0) * 1e3
-        with self._metrics_lock:
-            self.metrics["queries"] += sum(len(b) for b in batches)
-            self.metrics["total_ms"] += elapsed
+        with stage("pipeline.batch") as span:
+            with stage("pipeline.retrieve"), transfer_pool():
+                fetches = [dispatch(b, k=recall) for b in batches]
+                if any(f is None for f in fetches):
+                    # each batch answers in a pipeline.batch span of its own
+                    return [self._answer_batch(b, k=k) for b in batches]
+                # force every lazy device launch (BM25 coalescer) into the
+                # pool BEFORE the first fetch: the whole stream's readbacks
+                # then collapse to ONE device_get round trip
+                for f in fetches:
+                    p = getattr(f, "prime", None)
+                    if p is not None:
+                        p()
+                candidates = [f() for f in fetches]
+            out: List[List[List[Document]]] = []
+            for queries, cands in zip(batches, candidates):
+                if self.reranker is not None:
+                    with stage("pipeline.rerank"):
+                        batch_rerank = getattr(self.reranker, "rerank_batch", None)
+                        if batch_rerank is not None:
+                            cands = batch_rerank(queries, cands, k=k)
+                        else:
+                            cands = [
+                                self.reranker.rerank(q, docs, k=k)
+                                for q, docs in zip(queries, cands)
+                            ]
+                out.append([docs[:k] for docs in cands])
+            span["queries"] = sum(len(b) for b in batches)
         return out
 
     def warmup(self, batch_sizes: Sequence[int] = (1, 8, 32)) -> None:
@@ -185,15 +176,20 @@ class RagPipeline:
             self._answer_batch([f"warmup query {i}" for i in range(bs)])
 
     def stats(self) -> Dict[str, Any]:
-        q = max(self.metrics["queries"], 1)
+        """``queries``: queries submitted through the batcher;
+        ``mean_ms_per_query``: host ms of the process's ``pipeline.batch``
+        spans (batcher, warm-up and direct batches) over the queries they
+        answered, from the tracer's last samples."""
+        timings = get_tracer().summary()
+        batch = timings.get("pipeline.batch", {"total_ms": 0.0, "counts": {}})
         return {
-            "queries": self.metrics["queries"],
-            "mean_ms_per_query": self.metrics["total_ms"] / q,
+            "queries": self.batcher.stats["requests"],
+            "mean_ms_per_query": batch["total_ms"] / max(batch["counts"].get("queries", 0), 1),
             "batcher": dict(self.batcher.stats),
             "stages": {
                 "rewrite": self.rewriter is not None,
                 "rerank": self.reranker is not None,
                 "retriever": self.retriever.name,
             },
-            "stage_timings": get_tracer().summary(),
+            "stage_timings": timings,
         }

@@ -46,6 +46,7 @@ from rag_arc_tpu_torch.serving import app as tapp
 from rag_arc_tpu_torch.serving.batcher import QueryBatcher, _Pending
 from rag_arc_tpu_torch.serving.configs import PipelineConfig
 from rag_arc_tpu_torch.serving.pipeline import RagPipeline
+from rag_arc_tpu_torch.utils import tracing
 from rag_arc_tpu_torch.utils.data_model import Document
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -595,8 +596,17 @@ def test_warmup_reraises_where_jax_logs(caplog):
     assert "warmup batch 1 failed" in caplog.text
     store = TorchVectorStore.from_texts(CORPUS, HashEmbeddings(dim=32), device="cpu")
     pipe = RagPipeline(store.as_retriever())
-    pipe.warmup(batch_sizes=(1, 8))
-    assert pipe.stats()["queries"] == 9
+    t0 = time.time_ns()
+    tracing.enable()
+    try:
+        pipe.warmup(batch_sizes=(1, 8))
+    finally:
+        tracing.disable()
+    # one pipeline.batch span a warm-up batch; the warm-up goes round the
+    # batcher, whose queries /stats counts
+    answered = [s.attrs["queries"] for s in tracing.spans(t0) if s.name == "pipeline.batch"]
+    assert sorted(answered) == [1, 8]
+    assert pipe.stats()["queries"] == 0
 
 
 def test_streamed_batches_match_sequential():
