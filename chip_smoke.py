@@ -2529,7 +2529,11 @@ def rerank_order_inversions(got, ref) -> tuple[int, float]:
 def phase_rerank_e2e(torch, rp, fa, dev, store, texts, model, ref) -> tuple[int, int]:
     """``model`` on the kernel path, ``ref`` its einsum-path twin."""
     from rag_arc_tpu_torch.index.vector_store import Document
-    from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker, HashTokenizer
+    from rag_arc_tpu_torch.rerank.cross_encoder import (
+        CrossEncoderReranker,
+        HashTokenizer,
+        pack_prompts,
+    )
 
     phase(f"retrieve -> rerank: top {RERANK_CANDIDATES} of the e2e store for "
           f"{RERANK_QUERIES} query texts, reranked to {K} by the Qwen3 cross-encoder")
@@ -2550,8 +2554,12 @@ def phase_rerank_e2e(torch, rp, fa, dev, store, texts, model, ref) -> tuple[int,
     e2e_s = time.perf_counter() - t0
     launches = (rp.launches, fa.launches)
     n_pairs = RERANK_QUERIES * RERANK_CANDIDATES
-    bucket = rr._encode_bucketed(
-        [rr._render(q, d.content) for q, c in zip(queries, cands) for d in c])[0].shape[1]
+    ids, mask = rr._encode_bucketed(
+        [rr._render(q, d.content) for q, c in zip(queries, cands) for d in c])
+    n_rows = pack_prompts(ids, mask, rr.max_length)[0].shape[1]
+    packing = (f"prompts packed into {n_rows} rows of {rr.max_length} tokens, "
+               f"{100 * mask.sum() / (n_rows * rr.max_length):.1f}% real (the "
+               f"{ids.shape[1]}-token bucket: {100 * mask.sum() / ids.size:.1f}%)")
     report(f"rerank_batch of {n_pairs} pairs in {e2e_s * 1e3:.1f} ms (host clock, ends in "
            f"the readback) = {n_pairs / e2e_s:.1f} pairs/s; kernel launches rope_prep "
            f"{launches[0]}, flash_attention {launches[1]}")
@@ -2577,8 +2585,7 @@ def phase_rerank_e2e(torch, rp, fa, dev, store, texts, model, ref) -> tuple[int,
     spread = max(a[0].metadata["rerank_score"] - a[-1].metadata["rerank_score"] for a in full)
     report(f"full order vs the einsum path: {n_inv} inverted pairs, widest score gap among "
            f"them {gap:.3e} (bound {2 * P_BOUND}), max|ΔP(yes)| {d_p:.3e} (bound {P_BOUND}); "
-           f"widest score spread in a candidate set {spread:.3e}; prompts in the "
-           f"{bucket}-token bucket")
+           f"widest score spread in a candidate set {spread:.3e}; {packing}")
     check(d_p <= P_BOUND and gap <= 2 * P_BOUND, "rerank order differs beyond the bound")
     del rr_ref, full, full_ref
 
@@ -3021,7 +3028,8 @@ def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
     pipe.warmup(batch_sizes=(SERVE_RERANK_QPR,))
     rng = np.random.default_rng(SEED + 9)
     times, forwards = [], []
-    with served(pipe) as port, Calls(model, "hidden") as calls:
+    # the decoder stack of either reranker path: bucketed rows or packed ones
+    with served(pipe) as port, Calls(model, "_trunk") as calls:
         http = _Http(port)
         for r in range(SERVE_RERANK_REQUESTS):
             queries = [f"rerank request {r} query {j} doc {rng.integers(CORPUS_N)}"

@@ -25,7 +25,8 @@ f32.
 The two agree on live rows. Pad rows differ (the fused path lets a pad
 row attend only pads, the einsum path gives it a near-uniform mix), and
 nothing reads pad positions: the readouts take the last position of
-left-padded rows.
+left-padded rows, or, in ``last_logits_packed``, the last token of each
+sequence packed several to a row (segment ids in place of the mask).
 """
 
 from __future__ import annotations
@@ -221,19 +222,35 @@ class Qwen3LM(nn.Module):
             causal = torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
             bias = torch.where(causal[None, None] & mask[:, None, None, :], 0.0, MASK_BIAS)
             return _Context(positions, fused=False, bias=bias)
+        return self._fused_context(positions, mask.to(torch.int32))
+
+    def _packed_context(self, positions: torch.Tensor, seg: torch.Tensor) -> _Context:
+        """Several sequences a row: a key is seen by the queries of its own
+        segment at or after it, padding (segment −1) by no live query."""
+        if self.cfg.attn_impl == "einsum":
+            l = seg.shape[1]
+            causal = torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
+            seen = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
+            bias = torch.where(seen[:, None], 0.0, MASK_BIAS)
+            return _Context(positions, fused=False, bias=bias)
+        return self._fused_context(positions, seg)
+
+    def _fused_context(self, positions: torch.Tensor, seg: torch.Tensor) -> _Context:
         # the rope tables are position-only: one pair feeds every layer
-        cos, sin = rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
-        return _Context(positions, fused=True, seg=mask.to(torch.int32).contiguous(),
+        cos, sin = rope_cos_sin(positions, self.cfg.rope_theta, self.cfg.head_dim)
+        return _Context(positions, fused=True, seg=seg.to(torch.int32).contiguous(),
                         cos=cos.contiguous(), sin=sin.contiguous())
 
-    def hidden(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Final-norm hidden states (B, L, hidden) in the compute dtype."""
-        mask = mask.bool()
-        ctx = self._context(mask)
+    def _trunk(self, ids: torch.Tensor, ctx: _Context) -> torch.Tensor:
+        """The decoder layers' output (B, L, hidden), before the final norm."""
         x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
         for layer in self.layers:
             x = layer(x, ctx)
-        return self.norm(x)
+        return x
+
+    def hidden(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states (B, L, hidden) in the compute dtype."""
+        return self.norm(self._trunk(ids, self._context(mask.bool())))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
@@ -253,6 +270,21 @@ class Qwen3LM(nn.Module):
         """Logits (B, V) at the last position only (rows left-padded): the
         yes/no readout projects one (B, hidden) slice, not (B, L, V)."""
         return self._logits(self.hidden(ids, mask)[:, -1, :])
+
+    def last_logits_packed(
+        self, ids: torch.Tensor, positions: torch.Tensor, seg: torch.Tensor,
+        last_index: torch.Tensor,
+    ) -> torch.Tensor:
+        """Logits (N, V) of N sequences packed several to a row
+        (``models/packing.py``): ``ids``, ``positions`` (counted from each
+        sequence's first token) and ``seg`` (each sequence's slot in its
+        row, −1 on padding) are (R, L); ``last_index`` (N,) holds the flat
+        ``row * L + column`` of each sequence's last token, and the logits
+        come back in its order. Only those N hidden states go through the
+        final norm and the vocabulary head."""
+        x = self._trunk(ids, self._packed_context(positions.long(), seg))
+        last = x.reshape(-1, x.shape[-1]).index_select(0, last_index)
+        return self._logits(self.norm(last))
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Logits (B, L, V)."""

@@ -2,28 +2,41 @@
 ``rag_arc_tpu/rerank/cross_encoder.py``).
 
 Each (query, document) pair is rendered into a judge prompt, tokenized
-with left padding, run through a causal LM, and scored as P("yes") from
-a two-way log-softmax over the "yes"/"no" logits at the last position;
-results sort descending (stable) and truncate to k. The whole candidate
-set — for ``rerank_batch`` every query's — is one left-padded (N, L)
-batch, cut into chunks only at ``ATTN_BYTES_BUDGET``, with one readback
-at the end. Batches are not padded to a power of two: a pair's score
-does not depend on what it is batched with.
+with left padding to a length bucket (``_encode_bucketed``: the tail of a
+prompt longer than ``max_length`` is kept), run through a causal LM, and
+scored as P("yes") from a two-way log-softmax over the "yes"/"no" logits
+at the prompt's last token; results sort descending (stable) and
+truncate to k. The whole candidate set — for ``rerank_batch`` every
+query's — is one scoring pass, cut into chunks only at
+``ATTN_BYTES_BUDGET``, with one readback at the end. It takes one of two
+paths, chosen by what the scorer offers:
 
-The scorer is the default ``CausalLM`` (``models/encoder.py``) or any
-model with ``last_logits`` — ``Qwen3LM`` (``models/qwen3.py``), whose
-attention runs the ``rope_prep`` and flash-attention kernels on the card.
+- packed, for a scorer with ``last_logits_packed`` (``Qwen3LM``,
+  ``models/qwen3.py``, whose attention masks by segment ids): each
+  pair's real tokens from the bucketed rows go first-fit-decreasing
+  into rows of ``max_length`` tokens (``pack_prompts``), several pairs a
+  row, padding only at the ends of rows; each pair attends only its own
+  tokens, counts its positions from its first token, and is read at its
+  last token. Scores come back in the pairs' order.
+- bucketed, for any other scorer (the default ``CausalLM``,
+  ``models/encoder.py``, or a model with ``last_logits`` or a
+  ``(B, L, V)`` forward): the left-padded (N, L) rows as they are.
 
-Spans (``utils/tracing.py``): ``rerank.prompts`` (rendering and the
-bucketed tokenization, with ``tokens``, the real prompt tokens, and
-``slots``, the token slots the forward runs), ``rerank.forward`` (the
-chunks' uploads and launches) and ``rerank.readback``, each with ``pairs``.
+Batches are not padded to a power of two: a pair's score does not depend
+on what it is batched or packed with. On the card ``Qwen3LM`` runs the
+``rope_prep`` and flash-attention kernels.
+
+Spans (``utils/tracing.py``): ``rerank.prompts`` (rendering, the
+bucketed tokenization and the packing, with ``tokens``, the real prompt
+tokens, ``slots``, the token slots the forward runs, ``rows`` and
+``path``, ``packed`` or ``bucketed``), ``rerank.forward`` (the chunks'
+uploads and launches) and ``rerank.readback``, each with ``pairs``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +44,7 @@ import torch
 from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
 from rag_arc_tpu_torch.utils.data_model import Document
 from rag_arc_tpu_torch.models.encoder import CausalLM, TransformerConfig, init_causal_lm
+from rag_arc_tpu_torch.models.packing import pack_token_lists
 from rag_arc_tpu_torch.rerank.base import RerankerBase
 from rag_arc_tpu_torch.utils.tracing import stage
 
@@ -48,20 +62,43 @@ PROMPT_TEMPLATE = (
 )
 
 
+def _p_yes(last: torch.Tensor, yes_id: int, no_id: int) -> torch.Tensor:
+    """(B,) f32 P(yes): a two-way log-softmax over the no/yes logits."""
+    pair = torch.stack([last[:, no_id], last[:, yes_id]], dim=-1).float()
+    return torch.exp(torch.log_softmax(pair, dim=-1)[:, 1])
+
+
 def _score_batch(
     model, ids: torch.Tensor, mask: torch.Tensor, yes_id: int, no_id: int
 ) -> torch.Tensor:
-    """(B,) f32 P(yes) per row: a two-way log-softmax over the no/yes
-    logits at the last position (rows left-padded). Only the last hidden
-    state goes through the vocabulary head."""
+    """(B,) f32 P(yes) per row at the last position (rows left-padded).
+    Only the last hidden state goes through the vocabulary head."""
     if hasattr(model, "last_logits"):
         last = model.last_logits(ids, mask)
     elif isinstance(model, CausalLM):
         last = model(ids, mask, True)
     else:
         last = model(ids, mask)[:, -1, :]  # (B, V)
-    pair = torch.stack([last[:, no_id], last[:, yes_id]], dim=-1).float()
-    return torch.exp(torch.log_softmax(pair, dim=-1)[:, 1])
+    return _p_yes(last, yes_id, no_id)
+
+
+def pack_prompts(
+    ids: np.ndarray, mask: np.ndarray, row_len: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Left-padded prompts (N, L), none longer than ``row_len`` → their
+    real tokens packed first-fit-decreasing into rows of ``row_len``
+    (``models/packing.py``): ``(rows (3, R, row_len) int32 — ids,
+    positions, segment ids (−1 on padding) —, row (N,), last (N,))``, with
+    ``last`` the flat ``row * row_len + column`` of each prompt's last
+    token. Padding sits only at the ends of rows."""
+    lens = mask.sum(axis=1)
+    tokens = [r[r.size - n:] for r, n in zip(ids, lens)]
+    p_ids, pos, seg, mapping = pack_token_lists(tokens, row_len=row_len, max_segments=row_len)
+    row, slot = np.array(mapping, dtype=np.int64).T
+    width = np.zeros((p_ids.shape[0], slot.max() + 1), dtype=np.int64)
+    width[row, slot] = lens
+    last = row * row_len + np.cumsum(width, axis=1)[row, slot] - 1
+    return np.stack([p_ids, pos, seg]), row, last
 
 
 def _model_device(model) -> torch.device:
@@ -118,7 +155,9 @@ class CrossEncoderReranker(RerankerBase):
     ) -> "CrossEncoderReranker":
         """Build over any causal LM module with ``last_logits(ids, mask)`` or
         a ``(B, L, V)`` forward — e.g. a ``Qwen3LM`` from
-        ``models.qwen3.load_hf_qwen3``. ``params``, when given, is a
+        ``models.qwen3.load_hf_qwen3``, which also offers
+        ``last_logits_packed`` and so takes the packed path (module
+        docstring). ``params``, when given, is a
         state_dict loaded into ``model``; ``device`` is the model's (given
         or read from its parameters)."""
         self = cls.__new__(cls)
@@ -166,33 +205,63 @@ class CrossEncoderReranker(RerankerBase):
             instruction=self.instruction, query=query, document=document
         )
 
-    @torch.inference_mode()
-    def _score_prompts(self, prompts: Iterable[str]) -> np.ndarray:
-        """Render (``prompts`` may be a lazy iterable) and encode → chunk at
-        the attention byte budget → dispatch every chunk → one readback.
-        The single scoring path of both entry points."""
-        with stage("rerank.prompts") as span:
-            prompts = list(prompts)
-            ids, mask = self._encode_bucketed(prompts)
-            span["pairs"], span["tokens"], span["slots"] = len(prompts), int(mask.sum()), ids.size
-        n, length = len(prompts), ids.shape[1]
+    def _max_chunk(self, length: int) -> int:
+        """Rows a chunk of ``length``-token rows takes under the budget."""
         heads = (
             getattr(self.cfg, "heads", None)
             or getattr(self.cfg, "num_attention_heads", None)
             or 16
         )
         max_chunk = max(64, self.ATTN_BYTES_BUDGET // (heads * length * length * 4))
-        max_chunk = 1 << int(math.floor(math.log2(max_chunk)))
+        return 1 << int(math.floor(math.log2(max_chunk)))
+
+    @torch.inference_mode()
+    def _score_prompts(self, prompts: Iterable[str]) -> np.ndarray:
+        """Render (``prompts`` may be a lazy iterable) and encode → pack
+        (a scorer with ``last_logits_packed``) or keep the bucketed rows →
+        chunk at the attention byte budget → dispatch every chunk → one
+        readback. The single scoring path of both entry points."""
+        packed = hasattr(self.model, "last_logits_packed")
+        with stage("rerank.prompts") as span:
+            prompts = list(prompts)
+            ids, mask = self._encode_bucketed(prompts)
+            if packed:
+                rows, row_of, last = pack_prompts(ids, mask, self.max_length)
+                n_rows, length = rows.shape[1:]
+            else:
+                n_rows, length = ids.shape
+            span.update(pairs=len(prompts), tokens=int(mask.sum()), slots=n_rows * length,
+                        rows=n_rows, path="packed" if packed else "bucketed")
+        n, max_chunk = len(prompts), self._max_chunk(length)
+        if not packed:
+            with stage("rerank.forward", pairs=n):
+                ids_d = torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
+                mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
+                pending = [
+                    _score_batch(self.model, ids_d[lo : lo + max_chunk],
+                                 mask_d[lo : lo + max_chunk], self.yes_id, self.no_id)
+                    for lo in range(0, n, max_chunk)
+                ]
+            with stage("rerank.readback", pairs=n):
+                return torch.cat(pending).cpu().numpy()
+        # a pair never spans two rows, so a chunk of rows holds whole pairs:
+        # in row order, each chunk's pairs are one run of ``order``
+        order = np.argsort(row_of, kind="stable")
+        ends = np.searchsorted(row_of[order], np.arange(max_chunk, n_rows + max_chunk, max_chunk))
+        local = last[order] - (row_of[order] // max_chunk) * (max_chunk * length)
         with stage("rerank.forward", pairs=n):
-            ids_d = torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
-            mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
-            pending = [
-                _score_batch(self.model, ids_d[lo : lo + max_chunk],
-                             mask_d[lo : lo + max_chunk], self.yes_id, self.no_id)
-                for lo in range(0, n, max_chunk)
-            ]
+            rows_d = torch.from_numpy(rows).to(self.device)
+            local_d = torch.from_numpy(local).to(self.device)
+            pending, start = [], 0
+            for lo, end in zip(range(0, n_rows, max_chunk), ends):
+                ids_c, pos_c, seg_c = rows_d[:, lo : lo + max_chunk]
+                logits = self.model.last_logits_packed(ids_c, pos_c, seg_c, local_d[start:end])
+                pending.append(_p_yes(logits, self.yes_id, self.no_id))
+                start = end
         with stage("rerank.readback", pairs=n):
-            return torch.cat(pending).cpu().numpy()
+            scores = np.empty(n, dtype=np.float32)
+            scores[order] = torch.cat(pending).cpu().numpy()
+            return scores
 
     def compute_scores(self, query: str, documents: Sequence[Document]) -> np.ndarray:
         """P(yes) of every candidate, in one scoring pass."""
@@ -214,7 +283,7 @@ class CrossEncoderReranker(RerankerBase):
         k: Optional[int] = None,
     ) -> List[List[Document]]:
         """Rerank many queries' candidate sets in one scoring pass: every
-        (query, document) pair goes into one left-padded batch."""
+        (query, document) pair goes into one batch."""
         if len(queries) != len(documents_per_query):
             raise ValueError("queries and candidate lists length mismatch")
         spans: List[tuple[int, int]] = []

@@ -6,7 +6,8 @@ select's live picks, flags and residuals exactly), offset views,
 padded d, ragged lengths and query blocks, g up to 256, dead sub-tiles,
 KV heads shared by 1-8 query heads, ``out=`` views, the launch counts,
 the wrappers' refusals, and small Qwen3 forwards through both attention
-kernels (one launch each a layer, no plain version); an HTTP ``/batch``
+kernels (one launch each a layer, no plain version), the reranker's
+packed rows against its bucketed ones; an HTTP ``/batch``
 served at B=300 over a two-level-sized store (the producer and the
 select launch once each) and a blob-backed store's snapshot round trip
 on the card. They skip where no
@@ -735,6 +736,57 @@ def test_qwen3_forward_launches_each_kernel_once_a_layer(cuda, monkeypatch):
     assert (rp.launches - r0, fa.launches - f0) == (3, 3)
     assert plain_calls == []
     assert seen == [("rope", False), ("flash", 2, True)] * 3
+
+
+def test_qwen3_reranker_packed_close_to_bucketed(cuda):
+    """The reranker at Qwen3-Reranker-0.6B's widths (4 layers, seeded bf16
+    weights) over 100 NQ-like prompts (~143 tokens): P(yes) of the packed
+    path (~3-8 pairs a 512-token row) against the bucketed rows on the
+    same model, within the bf16 bound of the flash-vs-einsum test above,
+    and the same top 10 up to near-ties; one rope_prep and one flash
+    launch a layer for the whole pass."""
+    from rag_arc_tpu_torch.models import qwen3 as tq
+    from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
+    from rag_arc_tpu_torch.ops import flash_attention as fa
+    from rag_arc_tpu_torch.ops import rope_prep as rp
+    from rag_arc_tpu_torch.rerank import cross_encoder as tce
+    from rag_arc_tpu_torch.utils.data_model import Document
+
+    cfg = tq.Qwen3Config(vocab_size=151669, hidden_size=1024, intermediate_size=3072,
+                         num_hidden_layers=4, num_attention_heads=16, num_key_value_heads=8,
+                         head_dim=128, max_position_embeddings=40960,
+                         tie_word_embeddings=True, dtype=torch.bfloat16,
+                         param_dtype=torch.bfloat16)
+    model = tq.init_qwen3(cfg, 0, cuda)
+    rr = tce.CrossEncoderReranker.from_causal_lm(
+        model, None, HashTokenizer(vocab_size=cfg.vocab_size, max_len=512), max_length=512)
+    rng = np.random.default_rng(2)
+
+    def text(mean, cap):
+        n = int(np.clip(np.rint(rng.lognormal(np.log(mean) - 0.045, 0.3)), 1, cap))
+        return " ".join(f"w{int(w)}" for w in rng.integers(0, 30000, n))
+
+    query = text(9.16, 30)
+    docs = [Document(content=text(78.88, 400), id=f"p{i}") for i in range(100)]
+    r0, f0 = rp.launches, fa.launches
+    packed = rr.compute_scores(query, docs)
+    assert (rp.launches - r0, fa.launches - f0) == (4, 4)
+    ids, mask = rr._encode_bucketed([rr._render(query, d.content) for d in docs])
+    rows, _, _ = tce.pack_prompts(ids, mask, 512)
+    assert rows.shape[1] <= 40
+    with torch.inference_mode():
+        bucketed = tce._score_batch(model, torch.from_numpy(ids).to(cuda),
+                                    torch.from_numpy(mask).to(cuda), rr.yes_id,
+                                    rr.no_id).cpu().numpy()
+    assert np.isfinite(packed).all()
+    np.testing.assert_allclose(packed, bucketed, rtol=0, atol=5e-2)
+    # bf16 P(yes) ties and near-ties (1e-3 apart) that rounding reorders:
+    # rank by rank, the packed top 10 reads the bucketed top 10's scores
+    # within a few bf16 ulps of P (2^-8 near 0.7); the scores spread ~0.1
+    top_p = np.argsort(-packed, kind="stable")[:10]
+    top_b = np.argsort(-bucketed, kind="stable")[:10]
+    np.testing.assert_allclose(bucketed[top_p], bucketed[top_b], rtol=0, atol=1e-2)
+    assert np.std(bucketed) > 0.05
 
 
 # -- the kernel probe's kernels: piped producer, fused top-k, corpus stream ------

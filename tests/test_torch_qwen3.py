@@ -134,6 +134,46 @@ def test_fused_bf16_close_to_einsum_bf16():
     torch.testing.assert_close(a, b, atol=5e-2, rtol=0)
 
 
+def _packed(ids, mask, row_len):
+    """The live tokens of left-padded rows, laid one after another in rows
+    of ``row_len`` (in order, a new row when one is full): ids, positions,
+    segment ids (−1 on padding) and each sequence's flat last index."""
+    lens = mask.sum(axis=1)
+    rows = []
+    for i, n in enumerate(lens):
+        if not rows or sum(m for _, m in rows[-1]) + n > row_len:
+            rows.append([])
+        rows[-1].append((i, n))
+    out = np.zeros((3, len(rows), row_len), np.int32)
+    out[2] = -1
+    last = np.zeros(len(lens), np.int64)
+    for r, members in enumerate(rows):
+        col = 0
+        for slot, (i, n) in enumerate(members):
+            out[0, r, col : col + n] = ids[i, -n:]
+            out[1, r, col : col + n] = np.arange(n)
+            out[2, r, col : col + n] = slot
+            last[i] = r * row_len + col + n - 1
+            col += n
+    return out, last
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash", "einsum"])
+def test_last_logits_packed_match_flax_f32(impl):
+    """Sequences packed several to a row read the same logits at their last
+    tokens as Flax's ``last_logits`` over the left-padded batch."""
+    fmodel, params = _flax(seed=6)
+    model = _port(params, attn_impl=impl)
+    ids, mask = _batch(7, b=7)
+    want = np.asarray(fmodel.apply(params, jnp.asarray(ids), jnp.asarray(mask),
+                                   method=fmodel.last_logits))
+    rows, last = _packed(ids, mask, 48)
+    assert rows.shape[1] < 7
+    with torch.no_grad():
+        got = model.last_logits_packed(*_t(rows[0], rows[1], rows[2], last)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def hf_model():
     hf_cfg = transformers.Qwen3Config(
