@@ -204,7 +204,18 @@ Phases, each printing its own lines and times:
        ``TORCH_EMBEDDINGS`` 768 x 12 and BM25, REWRITE with FAKE_LLM)
        through ``Register``, 64 queries over HTTP; then a DENSE config with
        ``index_type: "ivf"`` (nlist 64) over the same 4,096 documents,
-       one scan and one select launch for each dispatch.
+       one scan and one select launch for each dispatch;
+  9. lfm2: LFM2-8B-A1B at its published widths (24 layers: 18 short conv,
+     6 attention 32/8 of 64; 22 MoE of 32 experts, top 4), bf16, seeded
+     weights. At the ``nq_lfm2moe.chat`` cell's shapes (28 packed rows of
+     512, ~98% live) ``short_conv``, the SwiGLU pass and ``moe_experts``
+     (``torch._grouped_mm`` over the experts' rows) are held against their
+     plain versions and timed in turns beside their bounds; then 4 single
+     queries through ``RagPipeline`` (recall 100 of 4,096 passages, top 10)
+     behind the app on the packed path: every forward packed, and
+     ``short_conv`` 18, the SwiGLU pass 22, ``rope_prep`` and
+     ``flash_attention`` 6 launches a forward, counted from 0 before each
+     request.
 
 With ``--parent DIR`` (a tree of an earlier commit, e.g. unpacked by
 ``git archive``), the select and ivf phases also time that tree's
@@ -377,6 +388,15 @@ SERVE_SOLO = 60
 SERVE_SOLO_DROP = 10
 SERVE_MMR_QUERIES = 4
 SERVE_RERANK_REQUESTS = 4
+# the lfm2 phase: the nq_lfm2moe.chat cell's shapes (one query's 100 pairs
+# of ~143 tokens packed into 28 rows of 512) and a small served corpus
+LFM2_ROWS = 28
+LFM2_ROW_LEN = 512
+LFM2_PAIR_TOKENS = (60, 230)
+LFM2_DOCS = 4096
+LFM2_PASSAGE_WORDS = 70
+LFM2_RECALL = 100
+LFM2_REQUESTS = 4
 SERVE_RERANK_QPR = 8
 SERVE_CONFIG_DOCS = 4096
 SERVE_CONFIG_QUERIES = 64
@@ -2345,12 +2365,12 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
     """Device time of each stage of layer 0 at the rerank shape."""
     import math
 
-    from rag_arc_tpu_torch.models.qwen3 import _linear
+    from rag_arc_tpu_torch.models.qwen3 import _linear, attention_context
 
     cfg = model.cfg
     layer, attn = model.layers[0], model.layers[0].self_attn
     hd, nh, nkv, dt = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads, cfg.dtype
-    ctx = model._context(mask)
+    ctx = attention_context(cfg, mask)
     with torch.inference_mode():
         x = model.embed_tokens(ids).to(dt)
         h = layer.input_layernorm(x)
@@ -3063,6 +3083,180 @@ def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
            f"forwards per request {forwards}, rope_prep and flash_attention {layers} launches "
            f"each a forward; every answer a sorted subset of the retrieved "
            f"{RERANK_CANDIDATES} in rerank_batch's order")
+
+
+def lfm2_segments(rng, rows: int, row_len: int):
+    """(rows, row_len) int32 segment ids of pairs packed as the reranker
+    packs NQ prompts: 60-230 tokens each, laid end to end, the last one cut
+    to the row's room, a tail too short for a pair −1."""
+    seg = np.full((rows, row_len), -1, dtype=np.int32)
+    for r in range(rows):
+        col = s = 0
+        while True:
+            n = int(rng.integers(LFM2_PAIR_TOKENS[0], LFM2_PAIR_TOKENS[1] + 1))
+            if col + n > row_len:  # the row's last pair takes what is left
+                n = row_len - col
+                if n < LFM2_PAIR_TOKENS[0]:
+                    break
+            seg[r, col:col + n] = s
+            col, s = col + n, s + 1
+    return seg
+
+
+def lfm2_kernels(torch, sc, moe, dev) -> dict:
+    """The short conv, the SwiGLU pass and the whole expert FFN against
+    their plain versions at LFM2-8B-A1B's widths on one served chunk of
+    packed rows, then timed in turns beside their bounds."""
+    rng = np.random.default_rng(SEED + 16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    h, inter, n_exp, top_k = 2048, 1792, 32, 4
+    seg = torch.from_numpy(lfm2_segments(rng, LFM2_ROWS, LFM2_ROW_LEN)).to(dev)
+    live = int((seg >= 0).sum())
+    out = {}
+
+    bcx = torch.randn(LFM2_ROWS, LFM2_ROW_LEN, 3 * h, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(h, 3, generator=gen, device=dev) / 3 ** 0.5).bfloat16()
+    got, want = sc.short_conv(bcx, w, seg), sc.short_conv_plain(bcx, w, seg)
+    d = float((got.float() - want.float()).abs().max())
+    report(f"short_conv, {LFM2_ROWS} rows x {LFM2_ROW_LEN} ({live} live tokens), H={h}: "
+           f"max|kernel - plain| {d:.3e} (one bf16 step of |y| <= "
+           f"{float(want.float().abs().max()):.2f} allowed)")
+    check(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+          "short_conv strays from its plain version")
+    check(bool((got[seg < 0] == 0).all()), "short_conv wrote non-zero padding")
+    nbytes = live * 4 * h * 2
+    t = in_turns(lambda: sc.short_conv(bcx, w, seg), lambda: sc.short_conv_plain(bcx, w, seg),
+                 "short_conv", live * 4 * h, "TFLOP/s", nbytes, "of B, C, x read and y written")
+    out["short_conv"] = {**t, **bound(live * 4 * h, H100_BF16_PEAK, nbytes)}
+    del bcx, got, want
+
+    x = torch.randn(LFM2_ROWS * LFM2_ROW_LEN, h, generator=gen, device=dev).bfloat16()
+    gate = (0.02 * torch.randn(n_exp, h, generator=gen, device=dev)).bfloat16()
+    bias = 0.05 * torch.randn(n_exp, generator=gen, device=dev)
+    gateup = (0.02 * torch.randn(n_exp, 2 * inter, h, generator=gen, device=dev)).bfloat16()
+    down = (0.02 * torch.randn(n_exp, h, inter, generator=gen, device=dev)).bfloat16()
+    r = moe.moe_route(x, gate, bias, top_k, live=(seg >= 0).reshape(-1))
+    rows = live * top_k
+    check(int(r.offsets[-1]) == rows, "moe_route routed padding or lost live tokens")
+
+    gu = 3 * torch.randn(r.token.numel(), 2 * inter, generator=gen, device=dev).bfloat16()
+    n_live = r.offsets[-1:]
+    got, want = moe.swiglu(gu, r.weight, n_live)[:rows], moe.swiglu_plain(gu, r.weight, n_live)[:rows]
+    d = float((got.float() - want.float()).abs().max())
+    report(f"moe swiglu, {rows} rows x I={inter}: max|kernel - plain| {d:.3e} (one bf16 step)")
+    check(torch.allclose(got.float(), want.float(), rtol=8e-3, atol=1e-6),
+          "the SwiGLU pass strays from its plain version")
+    nbytes = rows * (3 * inter * 2 + 4)
+    t = in_turns(lambda: moe.swiglu(gu, r.weight, n_live),
+                 lambda: moe.swiglu_plain(gu, r.weight, n_live), "moe swiglu",
+                 rows * inter * 6, "TFLOP/s", nbytes, "of g, u, w read and h written")
+    out["moe_swiglu"] = {**t, **bound(rows * inter * 6, H100_BF16_PEAK, nbytes)}
+    del gu, got, want
+
+    got = moe.moe_experts(x, r, gateup, down)
+    want = moe.moe_experts_plain(x, r, gateup, down)
+    scale = float(want.float().abs().max())
+    d = float((got.float() - want.float()).abs().max())
+    report(f"moe_experts (gather, torch._grouped_mm, swiglu, torch._grouped_mm, combine), "
+           f"{live} tokens x top {top_k} of {n_exp}, H={h} I={inter}: max|card - plain loop| "
+           f"{d:.3e} against |y| <= {scale:.3f} (bound 2e-2 of it: a few bf16 steps)")
+    check(d <= 2e-2 * scale, "moe_experts strays from the plain expert loop")
+    check(bool((got[seg.reshape(-1) < 0] == 0).all()), "moe_experts wrote non-zero padding")
+    ops = 6.0 * h * inter * rows
+    nbytes = 3 * n_exp * h * inter * 2 + 2 * live * h * 2
+    t = in_turns(lambda: moe.moe_experts(x, r, gateup, down),
+                 lambda: moe.moe_experts_plain(x, r, gateup, down), "moe_experts", ops,
+                 "TFLOP/s", nbytes, "of expert weights, x and y")
+    out["moe_experts"] = {**t, **bound(ops, H100_BF16_PEAK, nbytes)}
+    for name, row in out.items():
+        report(f"{name}: {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+               f"({row['bound_by']}; share {row['bound_ms'] / row['ms']:.2f})")
+    del x, gateup, down, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lfm2(torch, sc, moe, rp, fa, dev) -> dict:
+    """LFM2-8B-A1B at its published widths (seeded bf16 weights) as the
+    served cross-encoder: the new kernels held against their plain versions
+    at the served shapes, then requests through ``RagPipeline`` and the app
+    on the packed path with every new kernel's launches counted a forward.
+    Returns the kernel rows' numbers."""
+    from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
+    from rag_arc_tpu_torch.models.encoder import TransformerConfig
+    from rag_arc_tpu_torch.models.lfm2_moe import Lfm2MoeConfig, init_lfm2_moe
+    from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
+    from rag_arc_tpu_torch.models.torch_embeddings import TorchEncoderEmbeddings
+    from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker
+    from rag_arc_tpu_torch.serving.pipeline import RagPipeline
+
+    cfg = Lfm2MoeConfig(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    n_conv = cfg.layer_types.count("conv")
+    n_attn = cfg.num_hidden_layers - n_conv
+    phase(f"lfm2: LFM2-8B-A1B ({cfg.num_hidden_layers} layers: {n_conv} short conv, {n_attn} "
+          f"attention {cfg.num_attention_heads}/{cfg.num_key_value_heads}x{cfg.head_dim}; "
+          f"{cfg.moe_layers} MoE of {cfg.num_experts} experts, top {cfg.num_experts_per_tok}), "
+          f"bf16; kernels at {LFM2_ROWS} packed rows of {LFM2_ROW_LEN}, then served over "
+          f"{LFM2_DOCS} passages, recall {LFM2_RECALL}")
+    out = lfm2_kernels(torch, sc, moe, dev)
+
+    rng = np.random.default_rng(SEED + 17)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, n)) for n in rng.integers(3, 11, DOC_VOCAB)]
+    lens = np.minimum(rng.lognormal(np.log(LFM2_PASSAGE_WORDS), 0.5, LFM2_DOCS).astype(int) + 8,
+                      200)
+    texts = [" ".join(rng.choice(words, n)) for n in lens]
+    emb = TorchEncoderEmbeddings(TransformerConfig(), seed=SEED, device=dev)
+    store = TorchVectorStore.from_texts(texts, emb, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    model = init_lfm2_moe(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    report(f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B parameters made on the "
+           f"card in {time.perf_counter() - t0:.1f} s")
+    rr = CrossEncoderReranker.from_causal_lm(
+        model, None, HashTokenizer(vocab_size=cfg.vocab_size, max_len=LFM2_ROW_LEN), device=dev)
+    retriever = store.as_retriever(search_kwargs={"k": K})
+    pipe = RagPipeline(retriever, reranker=rr, recall_k=LFM2_RECALL, top_k=K,
+                       batch_max=SERVE_BATCH_MAX, batch_wait_ms=SERVE_WAIT_MS)
+    pipe.warmup(batch_sizes=(1,))
+    counters = [Counter(m) for m in (sc, moe, rp, fa)]
+    want_each = (n_conv, cfg.moe_layers, n_attn, n_attn)
+    times = []
+    with served(pipe) as port, Calls(model, "_trunk") as calls, \
+            Calls(model, "last_logits_packed") as packed:
+        http = _Http(port)
+        for i in range(LFM2_REQUESTS):
+            query = " ".join(rng.choice(words, 9))
+            for c in counters:
+                c.reset()
+            before = calls.n
+            t0 = time.perf_counter()
+            got = http.post("/batch", {"queries": [query], "k": K})["results"][0]
+            times.append((time.perf_counter() - t0) * 1e3)
+            n_fwd = calls.n - before
+            launches = tuple(c.read() for c in counters)
+            check(n_fwd > 0 and launches == tuple(n * n_fwd for n in want_each),
+                  f"request {i}: short_conv / moe / rope_prep / flash_attention launched "
+                  f"{launches} times for {n_fwd} forwards, not {want_each} each a forward")
+            with uncounted(sc, moe, rp, fa):
+                cands = retriever.invoke_batch([query], k=LFM2_RECALL)[0]
+            scores = [d["metadata"]["rerank_score"] for d in got]
+            check(len(got) == K and scores == sorted(scores, reverse=True)
+                  and all(0.0 <= s <= 1.0 for s in scores), "a short or unsorted answer")
+            check({d["id"] for d in got} <= {d.id for d in cands},
+                  f"an answer is not among the retrieved {LFM2_RECALL}")
+        http.close()
+    check(packed.n == calls.n, f"{calls.n - packed.n} forwards left the packed path")
+    report(f"{LFM2_REQUESTS} single-query requests x {LFM2_RECALL} candidates: "
+           + ", ".join(f"{t:.1f}" for t in times) + f" ms each (host clock; "
+           f"{np.mean(times[1:]):.1f} ms mean past the first), every forward packed; "
+           f"launches a forward: short_conv {n_conv}, moe swiglu {cfg.moe_layers}, rope_prep "
+           f"and flash_attention {n_attn} each")
+    out["short_conv"]["launches"] = n_conv
+    out["moe_swiglu"]["launches"] = out["moe_experts"]["launches"] = cfg.moe_layers
+    del pipe, rr, model, store, emb
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve_config(torch, dev, tmp: Path, texts: list[str]) -> None:
@@ -4023,6 +4217,8 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import fused_mips as fm
     from rag_arc_tpu_torch.ops import corpus_stream as cst
     from rag_arc_tpu_torch.ops import ivf_scan as isc
+    from rag_arc_tpu_torch.ops import moe
+    from rag_arc_tpu_torch.ops import short_conv as sc
 
     dev = torch.device("cuda", 0)
     counters = {"subtile_max": Counter(sm), "subtile_max_l2": Counter(sm, "launches_l2"),
@@ -4093,6 +4289,8 @@ def main() -> int:
                      "ivf_scan"):
             check(serving[name] > 0, f"{name} never launched on the serving path")
         del serve_store, qwen3, emb
+        torch.cuda.empty_cache()
+        lfm2 = phase_lfm2(torch, sc, moe, rp, fa, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -4145,6 +4343,15 @@ def main() -> int:
     for row in rows:  # each kernel's launches on the four serving phases
         row["launches_serving"] = serving[row["name"]]
     rows[-1]["launches_plan_serving"] = serving["ivf_scan_plan"]
+    # the LFM2 reranker's: no TPU counterpart; launches a served forward
+    rows += [
+        {"name": "short_conv", "route": "triton", "source": "rag_arc_tpu_torch/ops/short_conv.py",
+         "replaces": None, **lfm2["short_conv"]},
+        {"name": "moe_swiglu", "route": "triton", "source": "rag_arc_tpu_torch/ops/moe.py",
+         "replaces": None, **lfm2["moe_swiglu"]},
+        {"name": "moe_experts", "route": "torch._grouped_mm x2 + moe_swiglu",
+         "source": "rag_arc_tpu_torch/ops/moe.py", "replaces": None, **lfm2["moe_experts"]},
+    ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,6 +8,9 @@
   (``rag_arc_tpu/models/qwen3.py``) → the port's ``Qwen3LM``;
 - ``qwen3_state_dict_from_hf``: an HF ``Qwen3ForCausalLM`` state_dict →
   the port's ``Qwen3LM``;
+- ``lfm2_moe_state_dict_from_hf``: an HF LFM2 / LFM2-MoE causal LM
+  state_dict (``Lfm2ForCausalLM``, ``lfm2_moe``) → the port's
+  ``Lfm2MoeLM``;
 - ``bert_state_dict_from_flax``: the ``FlaxBertModel`` tree
   (``rag_arc_tpu/models/bert.py``) → the port's ``BertModel``, whose
   names are HF's (an HF state_dict loads into it as it is).
@@ -134,6 +137,64 @@ def qwen3_state_dict_from_hf(state_dict: Mapping[str, Any], cfg) -> Dict[str, to
             f"{pre}.gateup_proj.weight": torch.cat(
                 [w(f"{pre}.mlp.gate_proj"), w(f"{pre}.mlp.up_proj")]),
             f"{pre}.down_proj.weight": w(f"{pre}.mlp.down_proj"),
+        })
+    return out
+
+
+def lfm2_moe_state_dict_from_hf(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """An HF LFM2 causal LM state_dict → the port's ``Lfm2MoeLM`` state_dict
+    (f32). ``cfg`` is the port's ``Lfm2MoeConfig``. q|k|v are concatenated
+    into ``qkv_proj``, each SwiGLU's w1|w3 into ``gateup_proj`` (w2 is
+    ``down_proj``), the sparse blocks' per-expert ``experts.<e>.w1/w2/w3``
+    stacked into (E, 2I, H) and (E, H, I), the conv's (H, 1, K) weight
+    taken as (H, K). With ``tie_word_embeddings`` the HF ``lm_head`` (the
+    embedding table) is not carried."""
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+
+    def t(key: str) -> torch.Tensor:
+        v = sd[key]
+        return (v.detach() if hasattr(v, "detach") else torch.as_tensor(v)).float().cpu()
+
+    def w(key: str) -> torch.Tensor:
+        return t(f"{key}.weight")
+
+    out = {"embed_tokens.weight": w("embed_tokens"),
+           "embedding_norm.weight": w("embedding_norm")}
+    if not cfg.tie_word_embeddings:
+        out["lm_head.weight"] = w("lm_head")
+    for i, kind in enumerate(cfg.layer_types):
+        pre = f"layers.{i}"
+        out[f"{pre}.operator_norm.weight"] = w(f"{pre}.operator_norm")
+        out[f"{pre}.ffn_norm.weight"] = w(f"{pre}.ffn_norm")
+        if kind == "full_attention":
+            a = f"{pre}.self_attn"
+            out.update({
+                f"{a}.qkv_proj.weight": torch.cat([w(f"{a}.{n}_proj") for n in ("q", "k", "v")]),
+                f"{a}.o_proj.weight": w(f"{a}.out_proj"),
+                f"{a}.q_norm.weight": w(f"{a}.q_layernorm"),
+                f"{a}.k_norm.weight": w(f"{a}.k_layernorm"),
+            })
+        else:
+            c = f"{pre}.conv"
+            out.update({
+                f"{c}.in_proj.weight": w(f"{c}.in_proj"),
+                f"{c}.weight": w(f"{c}.conv").reshape(cfg.hidden_size, cfg.conv_L_cache),
+                f"{c}.out_proj.weight": w(f"{c}.out_proj"),
+            })
+        f = f"{pre}.feed_forward"
+        if i < cfg.num_dense_layers:
+            out[f"{f}.gateup_proj.weight"] = torch.cat([w(f"{f}.w1"), w(f"{f}.w3")])
+            out[f"{f}.down_proj.weight"] = w(f"{f}.w2")
+            continue
+        experts = range(cfg.num_experts)
+        out.update({
+            f"{f}.gate.weight": w(f"{f}.gate"),
+            f"{f}.expert_bias": (t(f"{f}.expert_bias") if f"{f}.expert_bias" in sd
+                                 else torch.zeros(cfg.num_experts)),
+            f"{f}.gateup_proj": torch.stack([
+                torch.cat([w(f"{f}.experts.{e}.w1"), w(f"{f}.experts.{e}.w3")])
+                for e in experts]),
+            f"{f}.down_proj": torch.stack([w(f"{f}.experts.{e}.w2") for e in experts]),
         })
     return out
 

@@ -194,6 +194,39 @@ class _Context:
     bias: Optional[torch.Tensor] = None  # (B, 1, L, L) f32, einsum path
 
 
+def attention_context(cfg: Qwen3Config, mask: torch.Tensor) -> _Context:
+    """The attention layers' context for left-padded rows (``mask`` (B, L)
+    bool)."""
+    # left-padding aware: positions count from the first live token
+    positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
+    if cfg.attn_impl == "einsum":
+        l = mask.shape[1]
+        causal = torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
+        bias = torch.where(causal[None, None] & mask[:, None, None, :], 0.0, MASK_BIAS)
+        return _Context(positions, fused=False, bias=bias)
+    return _fused_context(cfg, positions, mask.to(torch.int32))
+
+
+def packed_attention_context(cfg: Qwen3Config, positions: torch.Tensor,
+                             seg: torch.Tensor) -> _Context:
+    """Several sequences a row: a key is seen by the queries of its own
+    segment at or after it, padding (segment −1) by no live query."""
+    if cfg.attn_impl == "einsum":
+        l = seg.shape[1]
+        causal = torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
+        seen = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
+        bias = torch.where(seen[:, None], 0.0, MASK_BIAS)
+        return _Context(positions, fused=False, bias=bias)
+    return _fused_context(cfg, positions, seg)
+
+
+def _fused_context(cfg: Qwen3Config, positions: torch.Tensor, seg: torch.Tensor) -> _Context:
+    # the rope tables are position-only: one pair feeds every layer
+    cos, sin = rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
+    return _Context(positions, fused=True, seg=seg.to(torch.int32).contiguous(),
+                    cos=cos.contiguous(), sin=sin.contiguous())
+
+
 class Qwen3LM(nn.Module):
     """``ids (B, L), mask (B, L) bool`` → logits. Rows that several entry
     points read at their last position must be LEFT-padded."""
@@ -213,34 +246,6 @@ class Qwen3LM(nn.Module):
                 dtype=cfg.param_dtype,
             )
 
-    def _context(self, mask: torch.Tensor) -> _Context:
-        cfg = self.cfg
-        # left-padding aware: positions count from the first live token
-        positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
-        if cfg.attn_impl == "einsum":
-            l = mask.shape[1]
-            causal = torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
-            bias = torch.where(causal[None, None] & mask[:, None, None, :], 0.0, MASK_BIAS)
-            return _Context(positions, fused=False, bias=bias)
-        return self._fused_context(positions, mask.to(torch.int32))
-
-    def _packed_context(self, positions: torch.Tensor, seg: torch.Tensor) -> _Context:
-        """Several sequences a row: a key is seen by the queries of its own
-        segment at or after it, padding (segment −1) by no live query."""
-        if self.cfg.attn_impl == "einsum":
-            l = seg.shape[1]
-            causal = torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
-            seen = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
-            bias = torch.where(seen[:, None], 0.0, MASK_BIAS)
-            return _Context(positions, fused=False, bias=bias)
-        return self._fused_context(positions, seg)
-
-    def _fused_context(self, positions: torch.Tensor, seg: torch.Tensor) -> _Context:
-        # the rope tables are position-only: one pair feeds every layer
-        cos, sin = rope_cos_sin(positions, self.cfg.rope_theta, self.cfg.head_dim)
-        return _Context(positions, fused=True, seg=seg.to(torch.int32).contiguous(),
-                        cos=cos.contiguous(), sin=sin.contiguous())
-
     def _trunk(self, ids: torch.Tensor, ctx: _Context) -> torch.Tensor:
         """The decoder layers' output (B, L, hidden), before the final norm."""
         x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
@@ -250,7 +255,7 @@ class Qwen3LM(nn.Module):
 
     def hidden(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Final-norm hidden states (B, L, hidden) in the compute dtype."""
-        return self.norm(self._trunk(ids, self._context(mask.bool())))
+        return self.norm(self._trunk(ids, attention_context(self.cfg, mask.bool())))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
@@ -282,7 +287,7 @@ class Qwen3LM(nn.Module):
         ``row * L + column`` of each sequence's last token, and the logits
         come back in its order. Only those N hidden states go through the
         final norm and the vocabulary head."""
-        x = self._trunk(ids, self._packed_context(positions.long(), seg))
+        x = self._trunk(ids, packed_attention_context(self.cfg, positions.long(), seg))
         last = x.reshape(-1, x.shape[-1]).index_select(0, last_index)
         return self._logits(self.norm(last))
 

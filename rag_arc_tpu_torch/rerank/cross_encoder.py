@@ -12,25 +12,32 @@ query's — is one scoring pass, cut into chunks only at
 paths, chosen by what the scorer offers:
 
 - packed, for a scorer with ``last_logits_packed`` (``Qwen3LM``,
-  ``models/qwen3.py``, whose attention masks by segment ids): each
-  pair's real tokens from the bucketed rows go first-fit-decreasing
-  into rows of ``max_length`` tokens (``pack_prompts``), several pairs a
-  row, padding only at the ends of rows; each pair attends only its own
-  tokens, counts its positions from its first token, and is read at its
-  last token. Scores come back in the pairs' order.
+  ``models/qwen3.py``, whose attention masks by segment ids, and
+  ``Lfm2MoeLM``, ``models/lfm2_moe.py``, whose short convolutions also
+  stop at segment starts): each pair's real tokens from the bucketed
+  rows go first-fit-decreasing into rows of ``max_length`` tokens
+  (``pack_prompts``), several pairs a row, padding only at the ends of
+  rows; each pair sees only its own tokens, counts its positions from
+  its first token, and is read at its last token. Scores come back in
+  the pairs' order.
 - bucketed, for any other scorer (the default ``CausalLM``,
   ``models/encoder.py``, or a model with ``last_logits`` or a
   ``(B, L, V)`` forward): the left-padded (N, L) rows as they are.
 
 Batches are not padded to a power of two: a pair's score does not depend
 on what it is batched or packed with. On the card ``Qwen3LM`` runs the
-``rope_prep`` and flash-attention kernels.
+``rope_prep`` and flash-attention kernels, ``Lfm2MoeLM`` those and its
+short-conv and expert kernels.
 
 Spans (``utils/tracing.py``): ``rerank.prompts`` (rendering, the
 bucketed tokenization and the packing, with ``tokens``, the real prompt
 tokens, ``slots``, the token slots the forward runs, ``rows`` and
 ``path``, ``packed`` or ``bucketed``), ``rerank.forward`` (the chunks'
-uploads and launches) and ``rerank.readback``, each with ``pairs``.
+uploads and launches) and ``rerank.readback``, each with ``pairs``. A packed scorer that names ``device_counts`` (``Lfm2MoeLM``:
+``moe_assignments``, ``moe_busiest``) sums them on the card during the
+forward; they come back in the readback's one copy and are set on the
+``rerank.forward`` span's counts then, after it closed (``/stats`` reads
+them from the same dict).
 """
 
 from __future__ import annotations
@@ -155,8 +162,9 @@ class CrossEncoderReranker(RerankerBase):
     ) -> "CrossEncoderReranker":
         """Build over any causal LM module with ``last_logits(ids, mask)`` or
         a ``(B, L, V)`` forward — e.g. a ``Qwen3LM`` from
-        ``models.qwen3.load_hf_qwen3``, which also offers
-        ``last_logits_packed`` and so takes the packed path (module
+        ``models.qwen3.load_hf_qwen3`` or an ``Lfm2MoeLM`` from
+        ``models.lfm2_moe.load_hf_lfm2_moe``, which also offer
+        ``last_logits_packed`` and so take the packed path (module
         docstring). ``params``, when given, is a
         state_dict loaded into ``model``; ``device`` is the model's (given
         or read from its parameters)."""
@@ -249,18 +257,28 @@ class CrossEncoderReranker(RerankerBase):
         order = np.argsort(row_of, kind="stable")
         ends = np.searchsorted(row_of[order], np.arange(max_chunk, n_rows + max_chunk, max_chunk))
         local = last[order] - (row_of[order] // max_chunk) * (max_chunk * length)
-        with stage("rerank.forward", pairs=n):
+        names = getattr(self.model, "device_counts", ())
+        kw = {}
+        with stage("rerank.forward", pairs=n) as forward_span:
             rows_d = torch.from_numpy(rows).to(self.device)
             local_d = torch.from_numpy(local).to(self.device)
+            if names:
+                kw["counts"] = torch.zeros(len(names), dtype=torch.int64, device=self.device)
             pending, start = [], 0
             for lo, end in zip(range(0, n_rows, max_chunk), ends):
                 ids_c, pos_c, seg_c = rows_d[:, lo : lo + max_chunk]
-                logits = self.model.last_logits_packed(ids_c, pos_c, seg_c, local_d[start:end])
+                logits = self.model.last_logits_packed(ids_c, pos_c, seg_c, local_d[start:end],
+                                                       **kw)
                 pending.append(_p_yes(logits, self.yes_id, self.no_id))
                 start = end
         with stage("rerank.readback", pairs=n):
+            out = torch.cat(pending)
+            if names:  # one copy: the f32 scores and the counts, exact in f64
+                out = torch.cat([out.double(), kw["counts"].double()])
+            host = out.cpu().numpy()
+            forward_span.update((k, int(v)) for k, v in zip(names, host[n:]))
             scores = np.empty(n, dtype=np.float32)
-            scores[order] = torch.cat(pending).cpu().numpy()
+            scores[order] = host[:n]
             return scores
 
     def compute_scores(self, query: str, documents: Sequence[Document]) -> np.ndarray:
