@@ -40,6 +40,12 @@ Phases, each printing its own lines and times:
        included), and L in {64, 130, 200, 300}, D = 64, KV heads shared by
        2 or 3 query heads, f32, and ``out=`` a (B, L, H, D) buffer; timed
        in turns at the reranker shape (16/8 heads) beside SDPA;
+     - ``add_rms_norm`` (the residual add + RMSNorm, Triton) at each served
+       reranker's shape (T 15,360 x H 1,024 and T 14,336 x H 2,048, bf16):
+       ``x_new`` bit-equal to torch's add, ``y`` to the plain chain on
+       99.9% of elements and one bf16 step elsewhere; device time in turns
+       against the plain chain, beside its byte bound and ``F.rms_norm``
+       after an add;
      - ``subtile_max_piped`` (the warpgroup ping-pong): bf16 B in {1, 7,
        512}, f32 B = 64, int8 B in {7, 512}; its edges (B = 130, g = 64
        and 128/256 served from g = 64, d = 100 on offset views, dead
@@ -158,7 +164,8 @@ Phases, each printing its own lines and times:
      of 128, vocab 151,936), bf16, seeded N(0, 0.02) weights; ``last_logits``
      on B = 64 x L = 512 random ids timed (pairs/s, ms per 50-candidate
      query, MFU against 989 TFLOP/s), the attention calls checked (K/V
-     unrepeated, attention written in place), one layer's stage times, the
+     unrepeated, attention written in place), 28 launches of each attention
+     kernel and 57 of ``add_rms_norm`` a forward, one layer's stage times, the
      kernel path held against the einsum path on the same weights, and an
      f32 check at full width and 2 layers;
   7. retrieve -> rerank: the top 50 of the bf16 e2e store for 8 query texts
@@ -198,8 +205,8 @@ Phases, each printing its own lines and times:
      - serve_rerank: serve_2m's retriever with the Qwen3 cross-encoder
        (recall 50, top 10) behind the app, 4 requests of 8 queries: each
        answer a sorted subset of the retrieved 50 in ``rerank_batch``'s
-       order, ``rope_prep`` and ``flash_attention`` exactly 28 launches for
-       each forward the phase counts;
+       order, ``rope_prep`` and ``flash_attention`` exactly 28 launches and
+       ``add_rms_norm`` 57 for each forward the phase counts;
      - serve_config: a ``PipelineConfig`` document (MULTIPATH over
        ``TORCH_EMBEDDINGS`` 768 x 12 and BM25, REWRITE with FAKE_LLM)
        through ``Register``, 64 queries over HTTP; then a DENSE config with
@@ -214,8 +221,8 @@ Phases, each printing its own lines and times:
      queries through ``RagPipeline`` (recall 100 of 4,096 passages, top 10)
      behind the app on the packed path: every forward packed, and
      ``short_conv`` 18, the SwiGLU pass 22, ``rope_prep`` and
-     ``flash_attention`` 6 launches a forward, counted from 0 before each
-     request.
+     ``flash_attention`` 6 and ``add_rms_norm`` 49 launches a forward,
+     counted from 0 before each request.
 
 With ``--parent DIR`` (a tree of an earlier commit, e.g. unpacked by
 ``git archive``), the select and ivf phases also time that tree's
@@ -249,7 +256,7 @@ import numpy as np
 # the card's peak rates, the bound and CUDA-event timing: one copy, the
 # kernel A/B tool's
 from rag_arc_tpu_torch.tools.kernel_ab import (H100_BF16_PEAK, H100_F32_PEAK, H100_INT8_PEAK,
-                                               bound, cuda_ms)
+                                               bound, cuda_ms, queued_ms)
 
 SEED = 0
 K = 10
@@ -397,6 +404,10 @@ LFM2_DOCS = 4096
 LFM2_PASSAGE_WORDS = 70
 LFM2_RECALL = 100
 LFM2_REQUESTS = 4
+# the add + RMSNorm kernel at each served reranker's shape: one query's 100
+# NQ pairs packed into 30 (Qwen3) and 28 (LFM2) rows of 512 tokens
+RMS_NORM_SHAPES = ((30 * 512, 1024, "Qwen3-Reranker-0.6B, 30 rows of 512"),
+                   (28 * 512, 2048, "LFM2-8B-A1B, 28 rows of 512"))
 SERVE_RERANK_QPR = 8
 SERVE_CONFIG_DOCS = 4096
 SERVE_CONFIG_QUERIES = 64
@@ -2346,6 +2357,59 @@ def phase_flash(torch, fa, dev) -> dict:
             "library_ms": lib_ms}
 
 
+def phase_rms_norm(torch, rn, dev) -> dict:
+    """The residual add + RMSNorm kernel at each served reranker's shape:
+    ``x_new`` bit-equal to torch's bf16 add, ``y`` bit-equal to the plain
+    chain on at least 99.9% of elements and one bf16 step elsewhere; then
+    its device time with the host ahead of the card, in turns with the plain
+    chain, beside its byte bound (x and delta read, x_new and y written,
+    4·T·H·2 bytes) and ``F.rms_norm`` after an add (a yardstick the port
+    never calls). Returns each shape's numbers."""
+    import torch.nn.functional as F
+
+    phase("kernel against its plain version: add_rms_norm (residual add + RMSNorm, bf16)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    eps = 1e-6
+    out = {}
+    for t, h, what in RMS_NORM_SHAPES:
+        x = (3 * torch.randn(t, h, generator=gen, device=dev)).bfloat16()
+        delta = torch.randn(t, h, generator=gen, device=dev).bfloat16()
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).bfloat16()
+        before = rn.launches
+        got_x, got_y = rn.add_rms_norm(x, delta, w, eps)
+        check(rn.launches == before + 1, "add_rms_norm did not launch its kernel once")
+        want_x, want_y = rn.add_rms_norm_plain(x, delta, w, eps)
+        g, wy = got_y.float(), want_y.float()
+        equal = float((g == wy).float().mean())
+        one_step = bool(((g - wy).abs() <= wy.abs() * 2.0 ** -7).all())
+        report(f"add_rms_norm T={t} H={h} ({what}): x_new bit-equal to torch's add "
+               f"{torch.equal(got_x, want_x)}; y bit-equal on {100 * equal:.4f}% (at least "
+               f"99.9%), the rest within one bf16 step {one_step}")
+        check(torch.equal(got_x, want_x), "add_rms_norm's x_new is not torch's bf16 add")
+        check(equal >= 0.999 and one_step, "add_rms_norm's y strays from the plain chain")
+        del got_x, got_y, want_x, want_y, g, wy
+
+        kernel = lambda: rn.add_rms_norm(x, delta, w, eps)  # noqa: E731
+        plain = lambda: rn.add_rms_norm_plain(x, delta, w, eps)  # noqa: E731
+        library = lambda: F.rms_norm(x + delta, (h,), w, eps)  # noqa: E731
+        p1, k1, k2, p2 = (queued_ms(fn) for fn in (plain, kernel, kernel, plain))
+        lib = queued_ms(library)
+        events = cuda_ms(kernel, 20)
+        nbytes = 4 * t * h * 2
+        row = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+               "events_ms": events, **bound(5.0 * t * h, H100_F32_PEAK, nbytes)}
+        report(f"add_rms_norm T={t} H={h}: kernel {k1:.4f} / {k2:.4f} ms, plain chain "
+               f"{p1:.4f} / {p2:.4f} ms (device ms, the host ahead; in turns plain, kernel, "
+               f"kernel, plain); library add + F.rms_norm {lib:.4f} ms; kernel "
+               f"{nbytes / row['ms'] / 1e6:.1f} GB/s; bound {row['bound_ms']:.4f} ms "
+               f"({row['bound_by']}; share {row['bound_ms'] / row['ms']:.2f}); CUDA events with "
+               f"the host's launch {events:.4f} ms")
+        out[f"T{t}_H{h}"] = row
+        del x, delta, w
+    torch.cuda.empty_cache()
+    return out
+
+
 def rerank_flops_per_pair(cfg, length: int) -> float:
     """Matmul FLOPs of one pair's forward, as bench.py:421-429 counts them
     (qkvo + SwiGLU per layer, plus 4·L·NH·D attention per token)."""
@@ -2366,6 +2430,7 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
     import math
 
     from rag_arc_tpu_torch.models.qwen3 import _linear, attention_context
+    from rag_arc_tpu_torch.ops.rms_norm import add_rms_norm
 
     cfg = model.cfg
     layer, attn = model.layers[0], model.layers[0].self_attn
@@ -2384,21 +2449,23 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
                            out=buf.transpose(1, 2))
         flat = buf.view(x.shape[0], x.shape[1], nh * hd)
 
+        norm1, norm2 = layer.input_layernorm, layer.post_attention_layernorm
+
         def mlp():
-            gu = _linear(layer.gateup_proj, layer.post_attention_layernorm(x), dt)
+            gu = _linear(layer.gateup_proj, add_rms_norm(x, x, norm2.weight, norm2.eps)[1], dt)
             gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
             return _linear(layer.down_proj, torch.nn.functional.silu(gate) * up, dt)
 
         stages = {
-            "input RMSNorm": lambda: layer.input_layernorm(x),
+            "input add + RMSNorm": lambda: add_rms_norm(x, x, norm1.weight, norm1.eps),
             "qkv projection": lambda: _linear(attn.qkv_proj, h, dt),
             "rope_prep": lambda: rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh,
                                               nkv=nkv, d=hd, repeat_kv=False),
             "attention (into the (B,L,H,D) buffer)": lambda: fa.flash_attention(
                 qr, kr, vr, ctx.seg, sm_scale=1.0 / math.sqrt(hd), out=buf.transpose(1, 2)),
             "o_proj": lambda: _linear(attn.o_proj, flat, dt),
-            "MLP (norm, gate|up, SiLU*up, down)": mlp,
-            "whole layer": lambda: layer(x, ctx),
+            "MLP (add + norm, gate|up, SiLU*up, down)": mlp,
+            "whole layer": lambda: layer(x, x, ctx),
         }
         times = {}
         for name, fn in stages.items():
@@ -2447,11 +2514,13 @@ def model_attention_calls(torch, model, ids, mask) -> dict:
 def phase_rerank_model(torch, rp, fa, dev):
     """Qwen3-0.6B widths, seeded N(0, 0.02) bf16 weights, last_logits at
     B=64 x L=512 on the kernel path, timed and held against the einsum
-    path; then an f32 check at full width and 2 layers. Returns the model
-    and its einsum-path twin (the same weights)."""
+    path; then an f32 check at full width and 2 layers. Returns the model,
+    its einsum-path twin (the same weights) and the ``add_rms_norm``
+    launches a forward that the timed forwards counted."""
     import dataclasses
 
     from rag_arc_tpu_torch.models.qwen3 import Qwen3Config, Qwen3LM, init_qwen3
+    from rag_arc_tpu_torch.ops import rms_norm as rn
     from rag_arc_tpu_torch.rerank.cross_encoder import HashTokenizer
 
     cfg = Qwen3Config(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
@@ -2472,10 +2541,10 @@ def phase_rerank_model(torch, rp, fa, dev):
     with torch.inference_mode():
         calls = model_attention_calls(torch, model, ids, full)  # also the warm-up
         torch.cuda.synchronize()
-        Counter(rp).reset()
-        Counter(fa).reset()
+        for module in (rp, fa, rn):
+            Counter(module).reset()
         fwd_ms = cuda_ms(lambda: model.last_logits(ids, full), RERANK_REPS)
-        launches = (rp.launches, fa.launches)
+        launches = (rp.launches, fa.launches, rn.launches)
     per_fwd = tuple(n // RERANK_REPS for n in launches)
     pairs_s = RERANK_B / (fwd_ms / 1e3)
     flops = rerank_flops_per_pair(cfg, RERANK_L)
@@ -2484,9 +2553,10 @@ def phase_rerank_model(torch, rp, fa, dev):
            f"{pairs_s:.1f} pairs/s, {1e3 * 50 / pairs_s:.2f} ms per 50-candidate query, "
            f"MFU {100 * mfu:.2f}% of 989 TFLOP/s dense bf16 ({flops * RERANK_B / 1e12:.2f} "
            f"TFLOP a batch, bench.py:421-429 count); launches per forward: rope_prep "
-           f"{per_fwd[0]}, flash_attention {per_fwd[1]}")
-    check(per_fwd == (cfg.num_hidden_layers,) * 2,
-          f"launches per forward {per_fwd}, want {cfg.num_hidden_layers} each")
+           f"{per_fwd[0]}, flash_attention {per_fwd[1]}, add_rms_norm {per_fwd[2]}")
+    layers = cfg.num_hidden_layers
+    check(per_fwd == (layers, layers, 2 * layers + 1),
+          f"launches per forward {per_fwd}, want {layers}, {layers} and {2 * layers + 1}")
     report(f"the forward's attention calls: {calls}")
     check(calls == {"rope_prep repeat_kv=False, K heads": cfg.num_key_value_heads,
                     "flash_attention K heads": cfg.num_key_value_heads,
@@ -2529,7 +2599,7 @@ def phase_rerank_model(torch, rp, fa, dev):
     check(d32 <= F32_BOUND, f"f32 kernel path strays from the einsum path: {d32}")
     del m32, r32
     torch.cuda.empty_cache()
-    return model, ref
+    return model, ref, per_fwd[2]
 
 
 def rerank_order_inversions(got, ref) -> tuple[int, float]:
@@ -3031,7 +3101,11 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
     return store
 
 
-def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
+def phase_serve_rerank(torch, rp, fa, dev, store, model) -> int:
+    """Requests through ``RagPipeline`` and the app with the Qwen3
+    cross-encoder; returns the ``add_rms_norm`` launches a forward, as
+    counted on every request."""
+    from rag_arc_tpu_torch.ops import rms_norm as rn
     from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker, HashTokenizer
     from rag_arc_tpu_torch.serving.pipeline import RagPipeline
 
@@ -3054,18 +3128,22 @@ def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
         for r in range(SERVE_RERANK_REQUESTS):
             queries = [f"rerank request {r} query {j} doc {rng.integers(CORPUS_N)}"
                        for j in range(SERVE_RERANK_QPR)]
-            before = (rp.launches, fa.launches, calls.n)
+            before = (rp.launches, fa.launches, rn.launches, calls.n)
             t0 = time.perf_counter()
             out = http.post("/batch", {"queries": queries, "k": K})["results"]
             times.append((time.perf_counter() - t0) * 1e3)
             # the forwards the model ran for this request, counted here
-            n_fwd = calls.n - before[2]
-            launches = (rp.launches - before[0], fa.launches - before[1])
-            check(n_fwd > 0 and launches == (layers * n_fwd, layers * n_fwd),
-                  f"request {r}: rope_prep / flash_attention launched {launches} times for "
-                  f"{n_fwd} forwards, not {layers} each a forward")
+            n_fwd = calls.n - before[3]
+            launches = (rp.launches - before[0], fa.launches - before[1],
+                        rn.launches - before[2])
+            check(n_fwd > 0 and launches == (layers * n_fwd, layers * n_fwd,
+                                             (2 * layers + 1) * n_fwd),
+                  f"request {r}: rope_prep / flash_attention / add_rms_norm launched "
+                  f"{launches} times for {n_fwd} forwards, not {layers}, {layers} and "
+                  f"{2 * layers + 1} a forward")
             forwards.append(n_fwd)
-            with uncounted(rp, fa):
+            norm_per_fwd = launches[2] // n_fwd
+            with uncounted(rp, fa, rn):
                 cands = retriever.invoke_batch(queries, k=RERANK_CANDIDATES)
                 want = rr.rerank_batch(queries, cands, k=K)
             for got, c, w in zip(out, cands, want):
@@ -3081,8 +3159,9 @@ def phase_serve_rerank(torch, rp, fa, dev, store, model) -> None:
            f"{RERANK_CANDIDATES} candidates: " + ", ".join(f"{t:.1f}" for t in times)
            + f" ms each (host clock; {np.mean(times[1:]):.1f} ms mean past the first); "
            f"forwards per request {forwards}, rope_prep and flash_attention {layers} launches "
-           f"each a forward; every answer a sorted subset of the retrieved "
-           f"{RERANK_CANDIDATES} in rerank_batch's order")
+           f"each a forward, add_rms_norm {norm_per_fwd}; every answer a sorted subset of "
+           f"the retrieved {RERANK_CANDIDATES} in rerank_batch's order")
+    return norm_per_fwd
 
 
 def lfm2_segments(rng, rows: int, row_len: int):
@@ -3187,6 +3266,7 @@ def phase_lfm2(torch, sc, moe, rp, fa, dev) -> dict:
     from rag_arc_tpu_torch.models.lfm2_moe import Lfm2MoeConfig, init_lfm2_moe
     from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
     from rag_arc_tpu_torch.models.torch_embeddings import TorchEncoderEmbeddings
+    from rag_arc_tpu_torch.ops import rms_norm as rn
     from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker
     from rag_arc_tpu_torch.serving.pipeline import RagPipeline
 
@@ -3219,8 +3299,8 @@ def phase_lfm2(torch, sc, moe, rp, fa, dev) -> dict:
     pipe = RagPipeline(retriever, reranker=rr, recall_k=LFM2_RECALL, top_k=K,
                        batch_max=SERVE_BATCH_MAX, batch_wait_ms=SERVE_WAIT_MS)
     pipe.warmup(batch_sizes=(1,))
-    counters = [Counter(m) for m in (sc, moe, rp, fa)]
-    want_each = (n_conv, cfg.moe_layers, n_attn, n_attn)
+    counters = [Counter(m) for m in (sc, moe, rp, fa, rn)]
+    want_each = (n_conv, cfg.moe_layers, n_attn, n_attn, 2 * cfg.num_hidden_layers + 1)
     times = []
     with served(pipe) as port, Calls(model, "_trunk") as calls, \
             Calls(model, "last_logits_packed") as packed:
@@ -3236,9 +3316,11 @@ def phase_lfm2(torch, sc, moe, rp, fa, dev) -> dict:
             n_fwd = calls.n - before
             launches = tuple(c.read() for c in counters)
             check(n_fwd > 0 and launches == tuple(n * n_fwd for n in want_each),
-                  f"request {i}: short_conv / moe / rope_prep / flash_attention launched "
-                  f"{launches} times for {n_fwd} forwards, not {want_each} each a forward")
-            with uncounted(sc, moe, rp, fa):
+                  f"request {i}: short_conv / moe / rope_prep / flash_attention / add_rms_norm "
+                  f"launched {launches} times for {n_fwd} forwards, not {want_each} each a "
+                  f"forward")
+            per_fwd = tuple(n // n_fwd for n in launches)
+            with uncounted(sc, moe, rp, fa, rn):
                 cands = retriever.invoke_batch([query], k=LFM2_RECALL)[0]
             scores = [d["metadata"]["rerank_score"] for d in got]
             check(len(got) == K and scores == sorted(scores, reverse=True)
@@ -3250,10 +3332,11 @@ def phase_lfm2(torch, sc, moe, rp, fa, dev) -> dict:
     report(f"{LFM2_REQUESTS} single-query requests x {LFM2_RECALL} candidates: "
            + ", ".join(f"{t:.1f}" for t in times) + f" ms each (host clock; "
            f"{np.mean(times[1:]):.1f} ms mean past the first), every forward packed; "
-           f"launches a forward: short_conv {n_conv}, moe swiglu {cfg.moe_layers}, rope_prep "
-           f"and flash_attention {n_attn} each")
-    out["short_conv"]["launches"] = n_conv
-    out["moe_swiglu"]["launches"] = out["moe_experts"]["launches"] = cfg.moe_layers
+           f"launches a forward: short_conv {per_fwd[0]}, moe swiglu {per_fwd[1]}, rope_prep "
+           f"{per_fwd[2]}, flash_attention {per_fwd[3]}, add_rms_norm {per_fwd[4]}")
+    out["short_conv"]["launches"] = per_fwd[0]
+    out["moe_swiglu"]["launches"] = out["moe_experts"]["launches"] = per_fwd[1]
+    out["add_rms_norm_launches"] = per_fwd[4]
     del pipe, rr, model, store, emb
     torch.cuda.empty_cache()
     return out
@@ -4218,6 +4301,7 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import corpus_stream as cst
     from rag_arc_tpu_torch.ops import ivf_scan as isc
     from rag_arc_tpu_torch.ops import moe
+    from rag_arc_tpu_torch.ops import rms_norm as rn
     from rag_arc_tpu_torch.ops import short_conv as sc
 
     dev = torch.device("cuda", 0)
@@ -4237,6 +4321,7 @@ def main() -> int:
         kernel_select = phase_select(torch, sm, ss, dev)
         kernel_rope = phase_rope(torch, rp, dev)
         kernel_flash = phase_flash(torch, fa, dev)
+        kernel_rms_norm = phase_rms_norm(torch, rn, dev)
         kernel_piped = phase_kernel_piped(torch, sm, smi8, smp, dev)
         kernel_fused = phase_kernel_fused(torch, fm, dev)
         kernel_stream = phase_kernel_stream(torch, cst, dev)
@@ -4269,7 +4354,7 @@ def main() -> int:
         e2e_launches, emb, texts, store = phase_end_to_end(torch, sm, ss, dev)
         i8_launches = phase_end_to_end_i8(torch, smi8, ss, dev, emb, texts)
         hybrid_launches = phase_hybrid_retriever(torch, sm, ss, dev, store)
-        qwen3, qwen3_ref = phase_rerank_model(torch, rp, fa, dev)
+        qwen3, qwen3_ref, qwen3_norm_launches = phase_rerank_model(torch, rp, fa, dev)
         rope_launches, flash_launches = phase_rerank_e2e(
             torch, rp, fa, dev, store, texts, qwen3, qwen3_ref)
         del store, qwen3_ref
@@ -4281,7 +4366,7 @@ def main() -> int:
         phase_serve_ingest(torch, dev, tmp)
         serve_store = phase_serve_2m(torch, sm, ss, dev, data, emb, tmp)
         del data
-        phase_serve_rerank(torch, rp, fa, dev, serve_store, qwen3)
+        qwen3_norm_served = phase_serve_rerank(torch, rp, fa, dev, serve_store, qwen3)
         phase_serve_config(torch, dev, tmp, texts)
         serving = {name: counter.read() for name, counter in counters.items()}
         report(f"kernel launches on the serving phases: {serving}")
@@ -4352,6 +4437,16 @@ def main() -> int:
         {"name": "moe_experts", "route": "torch._grouped_mm x2 + moe_swiglu",
          "source": "rag_arc_tpu_torch/ops/moe.py", "replaces": None, **lfm2["moe_experts"]},
     ]
+    # XLA fused this chain on the TPU: no Pallas kernel. One row a served
+    # reranker's shape, with the launches a forward that the rerank,
+    # serve_rerank and lfm2 phases counted on that model
+    norm_launches = ({"launches": qwen3_norm_launches, "launches_serving": qwen3_norm_served},
+                     {"launches": lfm2["add_rms_norm_launches"]})
+    for (t, h, what), counted in zip(RMS_NORM_SHAPES, norm_launches):
+        rows.append({"name": "add_rms_norm", "route": "triton",
+                     "source": "rag_arc_tpu_torch/ops/rms_norm.py", "replaces": None,
+                     "shape": f"T={t} H={h} ({what})", **counted,
+                     **kernel_rms_norm[f"T{t}_H{h}"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

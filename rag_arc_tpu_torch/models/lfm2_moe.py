@@ -17,7 +17,9 @@ of ``intermediate_size``, the rest a sparse block of ``num_experts``
 SwiGLU experts of ``moe_intermediate_size`` with a sigmoid router that
 chooses ``num_experts_per_tok`` by score plus ``expert_bias``
 (``ops/moe.py``). Each layer is pre-norm (``operator_norm``, ``ffn_norm``)
-with residuals; a final ``embedding_norm``; RMSNorm is ``w · x̂``.
+with residuals; a final ``embedding_norm``; RMSNorm is ``w · x̂``. Every
+residual add and the norm after it run as one ``ops/rms_norm.py`` pass
+(the plain chain on the einsum path) through ``qwen3.residual_norm``.
 
 Parameters live in ``param_dtype`` and are cast to the compute ``dtype``
 where used; norms and the router compute in f32. The HF names map as
@@ -31,7 +33,9 @@ rows: padding reads as zero to the conv, as HF's
 ``last_logits_packed`` (several sequences a row: the conv stops at each
 segment start as attention does) and ``forward``. The new ops are called
 through this module's names (``short_conv``, ``moe_route``,
-``moe_experts``) so that a harness can wrap them. ``last_logits`` and
+``moe_experts``) so that a harness can wrap them; the norms go through
+``qwen3.residual_norm``, so wrapping ``models/qwen3.py``'s
+``add_rms_norm`` reaches both models. ``last_logits`` and
 ``last_logits_packed`` take ``counts``, a (2,) int64 device tensor that
 gains ``device_counts``: the routed assignments and the busiest expert's
 rows, summed over the MoE layers.
@@ -50,7 +54,7 @@ from torch import nn
 
 from rag_arc_tpu_torch.models.qwen3 import (
     ATTN_IMPLS, Qwen3Attention, Qwen3Config, RMSNorm, _Context, _linear, attention_context,
-    packed_attention_context,
+    last_rows, packed_attention_context, residual_norm,
 )
 from rag_arc_tpu_torch.ops.moe import moe_experts, moe_route
 from rag_arc_tpu_torch.ops.short_conv import short_conv
@@ -211,10 +215,15 @@ class Lfm2MoeLayer(nn.Module):
         self.feed_forward = (DenseMLP(cfg, device) if index < cfg.num_dense_layers
                              else SparseMoE(cfg, device))
 
-    def forward(self, x: torch.Tensor, ctx: _Lfm2Context) -> torch.Tensor:
-        h = self.operator_norm(x)
-        x = x + (self.self_attn(h, ctx.attn) if hasattr(self, "self_attn") else self.conv(h, ctx))
-        return x + self.feed_forward(self.ffn_norm(x), ctx)
+    def forward(self, x: torch.Tensor, delta: Optional[torch.Tensor],
+                ctx: _Lfm2Context) -> Tuple[torch.Tensor, torch.Tensor]:
+        """As ``Qwen3Layer.forward``: the stream with this layer's mixer
+        added, and this layer's feed-forward output still to be added."""
+        fused = ctx.attn.fused
+        x, h = residual_norm(x, delta, self.operator_norm, fused)
+        mixed = self.self_attn(h, ctx.attn) if hasattr(self, "self_attn") else self.conv(h, ctx)
+        x, h = residual_norm(x, mixed, self.ffn_norm, fused)
+        return x, self.feed_forward(h, ctx)
 
 
 class Lfm2MoeLM(nn.Module):
@@ -248,15 +257,19 @@ class Lfm2MoeLM(nn.Module):
         return _Lfm2Context(packed_attention_context(self.attn_cfg, positions, seg), seg,
                             (seg >= 0).reshape(-1), counts)
 
-    def _trunk(self, ids: torch.Tensor, ctx: _Lfm2Context) -> torch.Tensor:
+    def _trunk(self, ids: torch.Tensor,
+               ctx: _Lfm2Context) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """As ``Qwen3LM._trunk``: the stream and the pending delta."""
         x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
+        delta = None
         for layer in self.layers:
-            x = layer(x, ctx)
-        return x
+            x, delta = layer(x, delta, ctx)
+        return x, delta
 
     def hidden(self, ids: torch.Tensor, mask: torch.Tensor, counts=None) -> torch.Tensor:
         """Final-norm hidden states (B, L, hidden) in the compute dtype."""
-        return self.embedding_norm(self._trunk(ids, self._context(mask.bool(), counts)))
+        ctx = self._context(mask.bool(), counts)
+        return residual_norm(*self._trunk(ids, ctx), self.embedding_norm, ctx.attn.fused)[1]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
@@ -272,9 +285,10 @@ class Lfm2MoeLM(nn.Module):
                            last_index: torch.Tensor, counts=None) -> torch.Tensor:
         """Logits (N, V) of N sequences packed several to a row, as
         ``Qwen3LM.last_logits_packed`` takes them."""
-        x = self._trunk(ids, self._packed_context(positions.long(), seg, counts))
-        last = x.reshape(-1, x.shape[-1]).index_select(0, last_index)
-        return self._logits(self.embedding_norm(last))
+        ctx = self._packed_context(positions.long(), seg, counts)
+        x, delta = self._trunk(ids, ctx)
+        return self._logits(residual_norm(*last_rows(x, delta, last_index),
+                                          self.embedding_norm, ctx.attn.fused)[1])
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Logits (B, L, V)."""

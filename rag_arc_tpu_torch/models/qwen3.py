@@ -15,12 +15,16 @@ f32.
   rope and transpose in one pass, each KV head written once) then
   ``ops/flash_attention.py`` (causal, the mask as segment ids, the KV
   heads read directly, the output written in place as (B, L, NH, D) for
-  o_proj). On a CUDA tensor both launch their kernels, at any length; on
-  a CPU tensor both run their plain versions.
+  o_proj), and every residual add with the RMSNorm after it as one
+  ``ops/rms_norm.py`` pass (a layer hands its MLP output to the next
+  layer's input norm, the last layer's to the final norm). On a CUDA
+  tensor each launches its kernel, at any length; on a CPU tensor each
+  runs its plain version.
 - ``"einsum"``: the Flax unfused path in plain torch, with its rounding
   points (RMSNorm rounds to the compute dtype before rope, K/V repeated,
   a −1e9 additive causal & key-live bias, f32 softmax rounded to the
-  compute dtype). A reference path, chosen explicitly.
+  compute dtype), the adds and norms the plain chain. A reference path,
+  chosen explicitly.
 
 The two agree on live rows. Pad rows differ (the fused path lets a pad
 row attend only pads, the einsum path gives it a near-uniform mix), and
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rag_arc_tpu_torch.ops.flash_attention import flash_attention
+from rag_arc_tpu_torch.ops.rms_norm import add_rms_norm, add_rms_norm_plain
 from rag_arc_tpu_torch.ops.rope_prep import rope_cos_sin, rope_prep
 
 MASK_BIAS = -1e9
@@ -94,9 +99,18 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=param_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-        return (x32 * torch.rsqrt(var + self.eps) * self.weight.float()).to(self.dtype)
+        return add_rms_norm_plain(x, None, self.weight, self.eps)[1].to(self.dtype)
+
+
+def residual_norm(x: torch.Tensor, delta: Optional[torch.Tensor], norm: RMSNorm,
+                  fused: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x + delta, norm(x + delta))``: the residual add and the RMSNorm
+    after it, one ``add_rms_norm`` launch on the kernel path, the plain
+    chain on the einsum path. Both decoders (this module's and
+    ``models/lfm2_moe.py``) call it at every norm site, so wrapping this
+    module's ``add_rms_norm`` reaches all of them."""
+    op = add_rms_norm if fused else add_rms_norm_plain
+    return op(x, delta, norm.weight, norm.eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -174,12 +188,17 @@ class Qwen3Layer(nn.Module):
         self.gateup_proj = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, **kw)
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
-    def forward(self, x: torch.Tensor, ctx: "_Context") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, delta: Optional[torch.Tensor],
+                ctx: "_Context") -> Tuple[torch.Tensor, torch.Tensor]:
+        """``x`` the residual stream, ``delta`` the previous layer's MLP
+        output not yet added to it (None at layer 0). Returns the stream
+        with this layer's attention added, and this layer's MLP output."""
         cfg = self.cfg
-        x = x + self.self_attn(self.input_layernorm(x), ctx)
-        gu = _linear(self.gateup_proj, self.post_attention_layernorm(x), cfg.dtype)
+        x, h = residual_norm(x, delta, self.input_layernorm, ctx.fused)
+        x, h = residual_norm(x, self.self_attn(h, ctx), self.post_attention_layernorm, ctx.fused)
+        gu = _linear(self.gateup_proj, h, cfg.dtype)
         gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
-        return x + _linear(self.down_proj, F.silu(gate) * up, cfg.dtype)
+        return x, _linear(self.down_proj, F.silu(gate) * up, cfg.dtype)
 
 
 @dataclasses.dataclass
@@ -187,11 +206,22 @@ class _Context:
     """What every layer of one forward shares."""
 
     positions: torch.Tensor
-    fused: bool
+    fused: bool                          # the kernels (attention, add + RMSNorm) or plain torch
     seg: Optional[torch.Tensor] = None   # (B, L) int32, fused path
     cos: Optional[torch.Tensor] = None   # (B, L, D) f32, fused path
     sin: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None  # (B, 1, L, L) f32, einsum path
+
+
+def last_rows(x: torch.Tensor, delta: Optional[torch.Tensor],
+              index: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The rows ``index`` of the flattened (B · L, hidden) residual stream
+    and of its pending delta, so that the final add and norm run over those
+    rows only."""
+    def pick(t):
+        return t.reshape(-1, t.shape[-1]).index_select(0, index)
+
+    return pick(x), None if delta is None else pick(delta)
 
 
 def attention_context(cfg: Qwen3Config, mask: torch.Tensor) -> _Context:
@@ -246,16 +276,21 @@ class Qwen3LM(nn.Module):
                 dtype=cfg.param_dtype,
             )
 
-    def _trunk(self, ids: torch.Tensor, ctx: _Context) -> torch.Tensor:
-        """The decoder layers' output (B, L, hidden), before the final norm."""
+    def _trunk(self, ids: torch.Tensor,
+               ctx: _Context) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The residual stream (B, L, hidden) and the last layer's MLP output
+        still to be added to it (None without layers): the final norm adds
+        it."""
         x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
+        delta = None
         for layer in self.layers:
-            x = layer(x, ctx)
-        return x
+            x, delta = layer(x, delta, ctx)
+        return x, delta
 
     def hidden(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Final-norm hidden states (B, L, hidden) in the compute dtype."""
-        return self.norm(self._trunk(ids, attention_context(self.cfg, mask.bool())))
+        ctx = attention_context(self.cfg, mask.bool())
+        return residual_norm(*self._trunk(ids, ctx), self.norm, ctx.fused)[1]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:
@@ -287,9 +322,10 @@ class Qwen3LM(nn.Module):
         ``row * L + column`` of each sequence's last token, and the logits
         come back in its order. Only those N hidden states go through the
         final norm and the vocabulary head."""
-        x = self._trunk(ids, packed_attention_context(self.cfg, positions.long(), seg))
-        last = x.reshape(-1, x.shape[-1]).index_select(0, last_index)
-        return self._logits(self.norm(last))
+        ctx = packed_attention_context(self.cfg, positions.long(), seg)
+        x, delta = self._trunk(ids, ctx)
+        return self._logits(residual_norm(*last_rows(x, delta, last_index), self.norm,
+                                          ctx.fused)[1])
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Logits (B, L, V)."""
