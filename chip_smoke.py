@@ -2429,7 +2429,8 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
     """Device time of each stage of layer 0 at the rerank shape."""
     import math
 
-    from rag_arc_tpu_torch.models.qwen3 import _linear, attention_context
+    from rag_arc_tpu_torch.models.decoder import cast_linear
+    from rag_arc_tpu_torch.models.qwen3 import attention_context
     from rag_arc_tpu_torch.ops.rms_norm import add_rms_norm
 
     cfg = model.cfg
@@ -2439,7 +2440,7 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
     with torch.inference_mode():
         x = model.embed_tokens(ids).to(dt)
         h = layer.input_layernorm(x)
-        qkv = _linear(attn.qkv_proj, h, dt)
+        qkv = cast_linear(attn.qkv_proj, h, dt)
         q, k, v = qkv[..., : nh * hd], qkv[..., nh * hd : (nh + nkv) * hd], qkv[..., (nh + nkv) * hd :]
         qn, ks = attn.q_norm.weight.float(), attn.k_norm.weight.float()
         qr, kr, vr = rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh, nkv=nkv, d=hd,
@@ -2452,18 +2453,18 @@ def qwen3_layer_times(torch, model, rp, fa, ids, mask) -> None:
         norm1, norm2 = layer.input_layernorm, layer.post_attention_layernorm
 
         def mlp():
-            gu = _linear(layer.gateup_proj, add_rms_norm(x, x, norm2.weight, norm2.eps)[1], dt)
+            gu = cast_linear(layer.gateup_proj, add_rms_norm(x, x, norm2.weight, norm2.eps)[1], dt)
             gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
-            return _linear(layer.down_proj, torch.nn.functional.silu(gate) * up, dt)
+            return cast_linear(layer.down_proj, torch.nn.functional.silu(gate) * up, dt)
 
         stages = {
             "input add + RMSNorm": lambda: add_rms_norm(x, x, norm1.weight, norm1.eps),
-            "qkv projection": lambda: _linear(attn.qkv_proj, h, dt),
+            "qkv projection": lambda: cast_linear(attn.qkv_proj, h, dt),
             "rope_prep": lambda: rp.rope_prep(q, k, v, ctx.cos, ctx.sin, qn, ks, nh=nh,
                                               nkv=nkv, d=hd, repeat_kv=False),
             "attention (into the (B,L,H,D) buffer)": lambda: fa.flash_attention(
                 qr, kr, vr, ctx.seg, sm_scale=1.0 / math.sqrt(hd), out=buf.transpose(1, 2)),
-            "o_proj": lambda: _linear(attn.o_proj, flat, dt),
+            "o_proj": lambda: cast_linear(attn.o_proj, flat, dt),
             "MLP (add + norm, gate|up, SiLU*up, down)": mlp,
             "whole layer": lambda: layer(x, x, ctx),
         }
@@ -2648,8 +2649,8 @@ def phase_rerank_e2e(torch, rp, fa, dev, store, texts, model, ref) -> tuple[int,
         [rr._render(q, d.content) for q, c in zip(queries, cands) for d in c])
     n_rows = pack_prompts(ids, mask, rr.max_length)[0].shape[1]
     packing = (f"prompts packed into {n_rows} rows of {rr.max_length} tokens, "
-               f"{100 * mask.sum() / (n_rows * rr.max_length):.1f}% real (the "
-               f"{ids.shape[1]}-token bucket: {100 * mask.sum() / ids.size:.1f}%)")
+               f"{100 * mask.sum() / (n_rows * rr.max_length):.1f}% real (rows left-padded "
+               f"to the longest, {ids.shape[1]} tokens: {100 * mask.sum() / ids.size:.1f}%)")
     report(f"rerank_batch of {n_pairs} pairs in {e2e_s * 1e3:.1f} ms (host clock, ends in "
            f"the readback) = {n_pairs / e2e_s:.1f} pairs/s; kernel launches rope_prep "
            f"{launches[0]}, flash_attention {launches[1]}")
@@ -3122,7 +3123,7 @@ def phase_serve_rerank(torch, rp, fa, dev, store, model) -> int:
     pipe.warmup(batch_sizes=(SERVE_RERANK_QPR,))
     rng = np.random.default_rng(SEED + 9)
     times, forwards = [], []
-    # the decoder stack of either reranker path: bucketed rows or packed ones
+    # the decoder stack, once a packed forward
     with served(pipe) as port, Calls(model, "_trunk") as calls:
         http = _Http(port)
         for r in range(SERVE_RERANK_REQUESTS):

@@ -141,6 +141,18 @@ class Trunk(nn.Module):
             keep = keep & torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
         return torch.where(keep, 0.0, MASK_BIAS)
 
+    @staticmethod
+    def segment_bias(seg: torch.Tensor, causal: bool) -> torch.Tensor:
+        """Additive f32 bias (B, 1, L, L) for several sequences a row
+        (``seg`` (B, L), each token's slot in its row, -1 on padding): a
+        query sees the live keys of its own segment, and when causal only
+        those at or before it. Padding never matches a live key."""
+        keep = (seg[:, None, :, None] == seg[:, None, None, :]) & (seg >= 0)[:, None, None, :]
+        if causal:
+            l = seg.shape[1]
+            keep = keep & torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
+        return torch.where(keep, 0.0, MASK_BIAS)
+
 
 def l2_normalize_rows(pooled: torch.Tensor) -> torch.Tensor:
     """L2-normalize along the last axis (zero rows stay zero)."""
@@ -183,9 +195,9 @@ class TextEncoderFast(TextEncoder):
 
 
 class CausalLM(nn.Module):
-    """Causal trunk + f32 vocabulary head (the cross-encoder's scorer):
-    ``(ids (B, L), mask (B, L), last_only) → (B, L, V)``, or ``(B, V)`` at
-    the last position when ``last_only`` (rows left-padded)."""
+    """Causal trunk + f32 vocabulary head (the cross-encoder's default
+    scorer): ``(ids (B, L), mask (B, L)) → (B, L, V)``, and
+    ``last_logits_packed`` for sequences packed several to a row."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -195,15 +207,24 @@ class CausalLM(nn.Module):
             cfg.dim, cfg.vocab_size, device=device, dtype=cfg.param_dtype
         )
 
-    def forward(
-        self, ids: torch.Tensor, mask: torch.Tensor, last_only: bool = False
-    ) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.float(), self.lm_head.weight.float(), self.lm_head.bias.float())
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         mask = mask.bool()
         positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
-        x = self.trunk(ids.long(), positions, Trunk.mask_bias(mask, causal=True))
-        if last_only:
-            x = x[:, -1, :]
-        return F.linear(x.float(), self.lm_head.weight.float(), self.lm_head.bias.float())
+        return self._logits(self.trunk(ids.long(), positions, Trunk.mask_bias(mask, causal=True)))
+
+    def last_logits_packed(
+        self, ids: torch.Tensor, positions: torch.Tensor, seg: torch.Tensor,
+        last_index: torch.Tensor,
+    ) -> torch.Tensor:
+        """Logits (N, V) of N sequences packed several to a row, taken as
+        ``models/decoder.py``'s ``DecoderLM.last_logits_packed`` takes them:
+        each token sees the tokens of its own segment at or before it; only
+        the N last tokens go through the head."""
+        x = self.trunk(ids.long(), positions.long(), Trunk.segment_bias(seg, causal=True))
+        return self._logits(x.reshape(-1, x.shape[-1]).index_select(0, last_index))
 
 
 class PackedTextEncoder(nn.Module):
@@ -230,12 +251,7 @@ class PackedTextEncoder(nn.Module):
     def forward(
         self, ids: torch.Tensor, pos_ids: torch.Tensor, seg_ids: torch.Tensor
     ) -> torch.Tensor:
-        # token i attends to j iff both sit in one segment; padding (-1)
-        # never matches a valid key, which also requires seg >= 0
-        same = seg_ids[:, None, :, None] == seg_ids[:, None, None, :]
-        key_valid = (seg_ids >= 0)[:, None, None, :]
-        bias = torch.where(same & key_valid, 0.0, MASK_BIAS)
-        x = self.trunk(ids, pos_ids, bias)
+        x = self.trunk(ids, pos_ids, Trunk.segment_bias(seg_ids, causal=False))
         slots = torch.arange(self.max_segments, device=seg_ids.device)
         onehot = (seg_ids[..., None] == slots).float()          # (B, L, S)
         sums = torch.einsum("bld,bls->bsd", x.float(), onehot)

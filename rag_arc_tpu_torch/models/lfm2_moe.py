@@ -19,7 +19,7 @@ chooses ``num_experts_per_tok`` by score plus ``expert_bias``
 (``ops/moe.py``). Each layer is pre-norm (``operator_norm``, ``ffn_norm``)
 with residuals; a final ``embedding_norm``; RMSNorm is ``w · x̂``. Every
 residual add and the norm after it run as one ``ops/rms_norm.py`` pass
-(the plain chain on the einsum path) through ``qwen3.residual_norm``.
+(the plain chain on the einsum path) through ``decoder.residual_norm``.
 
 Parameters live in ``param_dtype`` and are cast to the compute ``dtype``
 where used; norms and the router compute in f32. The HF names map as
@@ -27,18 +27,19 @@ where used; norms and the router compute in f32. The HF names map as
 ``qkv_proj``, each dense or expert w1|w3 into ``gateup_proj``, the conv's
 weight without its middle axis).
 
-Entry points as ``Qwen3LM``'s: ``hidden``, ``last_logits`` (left-padded
-rows: padding reads as zero to the conv, as HF's
-``apply_mask_to_padding_states`` makes it, and is not routed),
-``last_logits_packed`` (several sequences a row: the conv stops at each
-segment start as attention does) and ``forward``. The new ops are called
-through this module's names (``short_conv``, ``moe_route``,
-``moe_experts``) so that a harness can wrap them; the norms go through
-``qwen3.residual_norm``, so wrapping ``models/qwen3.py``'s
-``add_rms_norm`` reaches both models. ``last_logits`` and
-``last_logits_packed`` take ``counts``, a (2,) int64 device tensor that
-gains ``device_counts``: the routed assignments and the busiest expert's
-rows, summed over the MoE layers.
+The entry points are ``models/decoder.py``'s ``DecoderLM``'s, as
+``Qwen3LM``'s: ``hidden``, ``last_logits`` (left-padded rows: padding
+reads as zero to the conv, as HF's ``apply_mask_to_padding_states``
+makes it, and is not routed), ``last_logits_packed`` (several sequences a
+row: the conv stops at each segment start as attention does) and
+``forward``; this module supplies the layers and their context. The new
+ops are called through this module's names (``short_conv``,
+``moe_route``, ``moe_experts``) so that a harness can wrap them; the
+norms go through ``decoder.residual_norm``, so wrapping
+``models/decoder.py``'s ``add_rms_norm`` reaches both models. ``hidden``,
+``last_logits`` and ``last_logits_packed`` take ``counts``, a (2,) int64
+device tensor that gains ``device_counts``: the routed assignments and
+the busiest expert's rows, summed over the MoE layers.
 """
 
 from __future__ import annotations
@@ -52,9 +53,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rag_arc_tpu_torch.models.decoder import DecoderLM, RMSNorm, cast_linear, residual_norm
 from rag_arc_tpu_torch.models.qwen3 import (
-    ATTN_IMPLS, Qwen3Attention, Qwen3Config, RMSNorm, _Context, _linear, attention_context,
-    last_rows, packed_attention_context, residual_norm,
+    ATTN_IMPLS, AttentionContext, Qwen3Attention, Qwen3Config, attention_context,
+    packed_attention_context,
 )
 from rag_arc_tpu_torch.ops.moe import moe_experts, moe_route
 from rag_arc_tpu_torch.ops.short_conv import short_conv
@@ -141,10 +143,14 @@ class Lfm2MoeConfig:
 class _Lfm2Context:
     """What every layer of one forward shares."""
 
-    attn: _Context                   # the attention layers'
+    attn: AttentionContext           # the attention layers'
     seg: torch.Tensor                # (B, L) int32: the conv's segments, −1 on padding
     live: torch.Tensor               # (B · L,) bool: the tokens the router routes
     counts: Optional[torch.Tensor]   # (2,) int64, or None
+
+    @property
+    def fused(self) -> bool:
+        return self.attn.fused
 
 
 class ShortConv(nn.Module):
@@ -160,8 +166,8 @@ class ShortConv(nn.Module):
 
     def forward(self, x: torch.Tensor, ctx: _Lfm2Context) -> torch.Tensor:
         dt = self.cfg.dtype
-        y = short_conv(_linear(self.in_proj, x, dt), self.weight, ctx.seg)
-        return _linear(self.out_proj, y, dt)
+        y = short_conv(cast_linear(self.in_proj, x, dt), self.weight, ctx.seg)
+        return cast_linear(self.out_proj, y, dt)
 
 
 class DenseMLP(nn.Module):
@@ -174,8 +180,8 @@ class DenseMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, ctx: _Lfm2Context) -> torch.Tensor:
         dt, inter = self.cfg.dtype, self.cfg.intermediate_size
-        gu = _linear(self.gateup_proj, x, dt)
-        return _linear(self.down_proj, F.silu(gu[..., :inter]) * gu[..., inter:], dt)
+        gu = cast_linear(self.gateup_proj, x, dt)
+        return cast_linear(self.down_proj, F.silu(gu[..., :inter]) * gu[..., inter:], dt)
 
 
 class SparseMoE(nn.Module):
@@ -219,32 +225,22 @@ class Lfm2MoeLayer(nn.Module):
                 ctx: _Lfm2Context) -> Tuple[torch.Tensor, torch.Tensor]:
         """As ``Qwen3Layer.forward``: the stream with this layer's mixer
         added, and this layer's feed-forward output still to be added."""
-        fused = ctx.attn.fused
-        x, h = residual_norm(x, delta, self.operator_norm, fused)
+        x, h = residual_norm(x, delta, self.operator_norm, ctx.fused)
         mixed = self.self_attn(h, ctx.attn) if hasattr(self, "self_attn") else self.conv(h, ctx)
-        x, h = residual_norm(x, mixed, self.ffn_norm, fused)
+        x, h = residual_norm(x, mixed, self.ffn_norm, ctx.fused)
         return x, self.feed_forward(h, ctx)
 
 
-class Lfm2MoeLM(nn.Module):
-    """``ids (B, L), mask (B, L) bool`` → logits. Rows read at their last
-    position must be LEFT-padded."""
+class Lfm2MoeLM(DecoderLM):
+    """``DecoderLM``'s entry points over LFM2-MoE layers."""
 
     device_counts = ("moe_assignments", "moe_busiest")
 
     def __init__(self, cfg: Lfm2MoeConfig, device=None):
-        super().__init__()
-        self.cfg = cfg
+        super().__init__(cfg, (Lfm2MoeLayer(cfg, i, device)
+                               for i in range(cfg.num_hidden_layers)),
+                         "embedding_norm", cfg.norm_eps, device)
         self.attn_cfg = cfg.attention()
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device,
-                                         dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList(Lfm2MoeLayer(cfg, i, device)
-                                    for i in range(cfg.num_hidden_layers))
-        self.embedding_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, cfg.dtype, device,
-                                      cfg.param_dtype)
-        if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                     device=device, dtype=cfg.param_dtype)
 
     def _context(self, mask: torch.Tensor, counts=None) -> _Lfm2Context:
         seg = mask.to(torch.int32) - 1
@@ -256,43 +252,6 @@ class Lfm2MoeLM(nn.Module):
         seg = seg.to(torch.int32).contiguous()
         return _Lfm2Context(packed_attention_context(self.attn_cfg, positions, seg), seg,
                             (seg >= 0).reshape(-1), counts)
-
-    def _trunk(self, ids: torch.Tensor,
-               ctx: _Lfm2Context) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """As ``Qwen3LM._trunk``: the stream and the pending delta."""
-        x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
-        delta = None
-        for layer in self.layers:
-            x, delta = layer(x, delta, ctx)
-        return x, delta
-
-    def hidden(self, ids: torch.Tensor, mask: torch.Tensor, counts=None) -> torch.Tensor:
-        """Final-norm hidden states (B, L, hidden) in the compute dtype."""
-        ctx = self._context(mask.bool(), counts)
-        return residual_norm(*self._trunk(ids, ctx), self.embedding_norm, ctx.attn.fused)[1]
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_word_embeddings:
-            dt = self.cfg.dtype
-            return F.linear(x.float().to(dt), self.embed_tokens.weight.to(dt))
-        return F.linear(x.float(), self.lm_head.weight.float())
-
-    def last_logits(self, ids: torch.Tensor, mask: torch.Tensor, counts=None) -> torch.Tensor:
-        """Logits (B, V) at the last position only (rows left-padded)."""
-        return self._logits(self.hidden(ids, mask, counts)[:, -1, :])
-
-    def last_logits_packed(self, ids: torch.Tensor, positions: torch.Tensor, seg: torch.Tensor,
-                           last_index: torch.Tensor, counts=None) -> torch.Tensor:
-        """Logits (N, V) of N sequences packed several to a row, as
-        ``Qwen3LM.last_logits_packed`` takes them."""
-        ctx = self._packed_context(positions.long(), seg, counts)
-        x, delta = self._trunk(ids, ctx)
-        return self._logits(residual_norm(*last_rows(x, delta, last_index),
-                                          self.embedding_norm, ctx.attn.fused)[1])
-
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Logits (B, L, V)."""
-        return self._logits(self.hidden(ids, mask))
 
 
 EXPERT_BIAS_STD = 0.05

@@ -31,6 +31,12 @@ row attend only pads, the einsum path gives it a near-uniform mix), and
 nothing reads pad positions: the readouts take the last position of
 left-padded rows, or, in ``last_logits_packed``, the last token of each
 sequence packed several to a row (segment ids in place of the mask).
+
+The entry points, the norms and the head are ``models/decoder.py``'s
+``DecoderLM``; this module holds the attention: ``Qwen3Attention``, its
+``AttentionContext`` and the two builders of one. ``Qwen3Attention``
+calls ``rope_prep`` and ``flash_attention`` through this module's names,
+so a harness can wrap them (``models/lfm2_moe.py`` runs the same module).
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rag_arc_tpu_torch.models.decoder import DecoderLM, RMSNorm, cast_linear, residual_norm
 from rag_arc_tpu_torch.ops.flash_attention import flash_attention
-from rag_arc_tpu_torch.ops.rms_norm import add_rms_norm, add_rms_norm_plain
 from rag_arc_tpu_torch.ops.rope_prep import rope_cos_sin, rope_prep
 
 MASK_BIAS = -1e9
@@ -90,29 +96,6 @@ class Qwen3Config:
         return cls(**base)
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device=None,
-                 param_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.eps = eps
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=param_dtype))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return add_rms_norm_plain(x, None, self.weight, self.eps)[1].to(self.dtype)
-
-
-def residual_norm(x: torch.Tensor, delta: Optional[torch.Tensor], norm: RMSNorm,
-                  fused: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(x + delta, norm(x + delta))``: the residual add and the RMSNorm
-    after it, one ``add_rms_norm`` launch on the kernel path, the plain
-    chain on the einsum path. Both decoders (this module's and
-    ``models/lfm2_moe.py``) call it at every norm site, so wrapping this
-    module's ``add_rms_norm`` reaches all of them."""
-    op = add_rms_norm if fused else add_rms_norm_plain
-    return op(x, delta, norm.weight, norm.eps)
-
-
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, HF half-split convention. x: (B, H, L, D)."""
     d = x.shape[-1]
@@ -121,10 +104,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     sin = sin_signed[:, None, :, d // 2 :]
     x1, x2 = x[..., : d // 2], x[..., d // 2 :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-
-def _linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), lin.weight.to(dtype))
 
 
 class Qwen3Attention(nn.Module):
@@ -139,11 +118,11 @@ class Qwen3Attention(nn.Module):
         self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, **norm)
         self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, **norm)
 
-    def forward(self, x: torch.Tensor, ctx: "_Context") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx: "AttentionContext") -> torch.Tensor:
         cfg = self.cfg
         b, l, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
-        qkv = _linear(self.qkv_proj, x, cfg.dtype)
+        qkv = cast_linear(self.qkv_proj, x, cfg.dtype)
         q = qkv[..., : nh * hd]
         k = qkv[..., nh * hd : (nh + nkv) * hd]
         v = qkv[..., (nh + nkv) * hd :]
@@ -160,7 +139,7 @@ class Qwen3Attention(nn.Module):
             buf = torch.empty((b, l, nh, hd), dtype=q.dtype, device=q.device)
             flash_attention(q, k, v, ctx.seg, causal=True, sm_scale=1.0 / math.sqrt(hd),
                             out=buf.transpose(1, 2))
-            return _linear(self.o_proj, buf.view(b, l, nh * hd), cfg.dtype)
+            return cast_linear(self.o_proj, buf.view(b, l, nh * hd), cfg.dtype)
         q = self.q_norm(q.reshape(b, l, nh, hd))
         k = self.k_norm(k.reshape(b, l, nkv, hd))
         q = rope(q.transpose(1, 2), ctx.positions, cfg.rope_theta)
@@ -173,7 +152,7 @@ class Qwen3Attention(nn.Module):
         probs = torch.softmax(scores + ctx.bias, dim=-1).to(cfg.dtype)
         out = probs @ v
         out = out.transpose(1, 2).reshape(b, l, nh * hd)
-        return _linear(self.o_proj, out, cfg.dtype)
+        return cast_linear(self.o_proj, out, cfg.dtype)
 
 
 class Qwen3Layer(nn.Module):
@@ -189,20 +168,20 @@ class Qwen3Layer(nn.Module):
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
     def forward(self, x: torch.Tensor, delta: Optional[torch.Tensor],
-                ctx: "_Context") -> Tuple[torch.Tensor, torch.Tensor]:
+                ctx: "AttentionContext") -> Tuple[torch.Tensor, torch.Tensor]:
         """``x`` the residual stream, ``delta`` the previous layer's MLP
         output not yet added to it (None at layer 0). Returns the stream
         with this layer's attention added, and this layer's MLP output."""
         cfg = self.cfg
         x, h = residual_norm(x, delta, self.input_layernorm, ctx.fused)
         x, h = residual_norm(x, self.self_attn(h, ctx), self.post_attention_layernorm, ctx.fused)
-        gu = _linear(self.gateup_proj, h, cfg.dtype)
+        gu = cast_linear(self.gateup_proj, h, cfg.dtype)
         gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
-        return x, _linear(self.down_proj, F.silu(gate) * up, cfg.dtype)
+        return x, cast_linear(self.down_proj, F.silu(gate) * up, cfg.dtype)
 
 
 @dataclasses.dataclass
-class _Context:
+class AttentionContext:
     """What every layer of one forward shares."""
 
     positions: torch.Tensor
@@ -213,18 +192,7 @@ class _Context:
     bias: Optional[torch.Tensor] = None  # (B, 1, L, L) f32, einsum path
 
 
-def last_rows(x: torch.Tensor, delta: Optional[torch.Tensor],
-              index: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The rows ``index`` of the flattened (B · L, hidden) residual stream
-    and of its pending delta, so that the final add and norm run over those
-    rows only."""
-    def pick(t):
-        return t.reshape(-1, t.shape[-1]).index_select(0, index)
-
-    return pick(x), None if delta is None else pick(delta)
-
-
-def attention_context(cfg: Qwen3Config, mask: torch.Tensor) -> _Context:
+def attention_context(cfg: Qwen3Config, mask: torch.Tensor) -> AttentionContext:
     """The attention layers' context for left-padded rows (``mask`` (B, L)
     bool)."""
     # left-padding aware: positions count from the first live token
@@ -233,12 +201,12 @@ def attention_context(cfg: Qwen3Config, mask: torch.Tensor) -> _Context:
         l = mask.shape[1]
         causal = torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
         bias = torch.where(causal[None, None] & mask[:, None, None, :], 0.0, MASK_BIAS)
-        return _Context(positions, fused=False, bias=bias)
+        return AttentionContext(positions, fused=False, bias=bias)
     return _fused_context(cfg, positions, mask.to(torch.int32))
 
 
 def packed_attention_context(cfg: Qwen3Config, positions: torch.Tensor,
-                             seg: torch.Tensor) -> _Context:
+                             seg: torch.Tensor) -> AttentionContext:
     """Several sequences a row: a key is seen by the queries of its own
     segment at or after it, padding (segment −1) by no live query."""
     if cfg.attn_impl == "einsum":
@@ -246,58 +214,30 @@ def packed_attention_context(cfg: Qwen3Config, positions: torch.Tensor,
         causal = torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
         seen = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
         bias = torch.where(seen[:, None], 0.0, MASK_BIAS)
-        return _Context(positions, fused=False, bias=bias)
+        return AttentionContext(positions, fused=False, bias=bias)
     return _fused_context(cfg, positions, seg)
 
 
-def _fused_context(cfg: Qwen3Config, positions: torch.Tensor, seg: torch.Tensor) -> _Context:
+def _fused_context(cfg: Qwen3Config, positions: torch.Tensor,
+                   seg: torch.Tensor) -> AttentionContext:
     # the rope tables are position-only: one pair feeds every layer
     cos, sin = rope_cos_sin(positions, cfg.rope_theta, cfg.head_dim)
-    return _Context(positions, fused=True, seg=seg.to(torch.int32).contiguous(),
-                    cos=cos.contiguous(), sin=sin.contiguous())
+    return AttentionContext(positions, fused=True, seg=seg.to(torch.int32).contiguous(),
+                            cos=cos.contiguous(), sin=sin.contiguous())
 
 
-class Qwen3LM(nn.Module):
-    """``ids (B, L), mask (B, L) bool`` → logits. Rows that several entry
-    points read at their last position must be LEFT-padded."""
+class Qwen3LM(DecoderLM):
+    """``DecoderLM``'s entry points over Qwen3 layers, and ``embed``."""
 
     def __init__(self, cfg: Qwen3Config, device=None):
-        super().__init__()
-        self.cfg = cfg
-        self.embed_tokens = nn.Embedding(
-            cfg.vocab_size, cfg.hidden_size, device=device, dtype=cfg.param_dtype
-        )
-        self.layers = nn.ModuleList(Qwen3Layer(cfg, device) for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, device,
-                            cfg.param_dtype)
-        if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(
-                cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
-                dtype=cfg.param_dtype,
-            )
+        super().__init__(cfg, (Qwen3Layer(cfg, device) for _ in range(cfg.num_hidden_layers)),
+                         "norm", cfg.rms_norm_eps, device)
 
-    def _trunk(self, ids: torch.Tensor,
-               ctx: _Context) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The residual stream (B, L, hidden) and the last layer's MLP output
-        still to be added to it (None without layers): the final norm adds
-        it."""
-        x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
-        delta = None
-        for layer in self.layers:
-            x, delta = layer(x, delta, ctx)
-        return x, delta
+    def _context(self, mask: torch.Tensor) -> AttentionContext:
+        return attention_context(self.cfg, mask)
 
-    def hidden(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Final-norm hidden states (B, L, hidden) in the compute dtype."""
-        ctx = attention_context(self.cfg, mask.bool())
-        return residual_norm(*self._trunk(ids, ctx), self.norm, ctx.fused)[1]
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_word_embeddings:
-            # Flax Embed.attend: query and table in the compute dtype
-            dt = self.cfg.dtype
-            return F.linear(x.float().to(dt), self.embed_tokens.weight.to(dt))
-        return F.linear(x.float(), self.lm_head.weight.float())
+    def _packed_context(self, positions: torch.Tensor, seg: torch.Tensor) -> AttentionContext:
+        return packed_attention_context(self.cfg, positions, seg)
 
     def embed(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Last-live-token pooled, L2-normalized (B, hidden) f32 embeddings
@@ -305,31 +245,6 @@ class Qwen3LM(nn.Module):
         pooled = self.hidden(ids, mask)[:, -1, :].float()
         norm = torch.linalg.norm(pooled, dim=-1, keepdim=True)
         return pooled / torch.clamp(norm, min=1e-12)
-
-    def last_logits(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Logits (B, V) at the last position only (rows left-padded): the
-        yes/no readout projects one (B, hidden) slice, not (B, L, V)."""
-        return self._logits(self.hidden(ids, mask)[:, -1, :])
-
-    def last_logits_packed(
-        self, ids: torch.Tensor, positions: torch.Tensor, seg: torch.Tensor,
-        last_index: torch.Tensor,
-    ) -> torch.Tensor:
-        """Logits (N, V) of N sequences packed several to a row
-        (``models/packing.py``): ``ids``, ``positions`` (counted from each
-        sequence's first token) and ``seg`` (each sequence's slot in its
-        row, −1 on padding) are (R, L); ``last_index`` (N,) holds the flat
-        ``row * L + column`` of each sequence's last token, and the logits
-        come back in its order. Only those N hidden states go through the
-        final norm and the vocabulary head."""
-        ctx = packed_attention_context(self.cfg, positions.long(), seg)
-        x, delta = self._trunk(ids, ctx)
-        return self._logits(residual_norm(*last_rows(x, delta, last_index), self.norm,
-                                          ctx.fused)[1])
-
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Logits (B, L, V)."""
-        return self._logits(self.hidden(ids, mask))
 
 
 @torch.no_grad()

@@ -2,42 +2,39 @@
 ``rag_arc_tpu/rerank/cross_encoder.py``).
 
 Each (query, document) pair is rendered into a judge prompt, tokenized
-with left padding to a length bucket (``_encode_bucketed``: the tail of a
-prompt longer than ``max_length`` is kept), run through a causal LM, and
-scored as P("yes") from a two-way log-softmax over the "yes"/"no" logits
-at the prompt's last token; results sort descending (stable) and
-truncate to k. The whole candidate set — for ``rerank_batch`` every
-query's — is one scoring pass, cut into chunks only at
-``ATTN_BYTES_BUDGET``, with one readback at the end. It takes one of two
-paths, chosen by what the scorer offers:
+once as a left-padded batch (``_encode_bucketed``: as wide as the longest
+prompt, the tail of a prompt longer than ``max_length`` kept), its real
+tokens packed first-fit-decreasing into rows of ``max_length`` tokens
+(``pack_prompts``; several pairs a row, padding only at the ends of rows),
+run through a causal LM, and scored as P("yes") from a two-way
+log-softmax over the "yes"/"no" logits at the pair's last token; results
+sort descending (stable) and truncate to k. Each pair sees only its own
+tokens and counts its positions from its first token. The whole
+candidate set — for ``rerank_batch`` every query's — is one scoring pass,
+cut into chunks of rows only at ``ATTN_BYTES_BUDGET``, with one readback
+at the end; scores come back in the pairs' order.
 
-- packed, for a scorer with ``last_logits_packed`` (``Qwen3LM``,
-  ``models/qwen3.py``, whose attention masks by segment ids, and
-  ``Lfm2MoeLM``, ``models/lfm2_moe.py``, whose short convolutions also
-  stop at segment starts): each pair's real tokens from the bucketed
-  rows go first-fit-decreasing into rows of ``max_length`` tokens
-  (``pack_prompts``), several pairs a row, padding only at the ends of
-  rows; each pair sees only its own tokens, counts its positions from
-  its first token, and is read at its last token. Scores come back in
-  the pairs' order.
-- bucketed, for any other scorer (the default ``CausalLM``,
-  ``models/encoder.py``, or a model with ``last_logits`` or a
-  ``(B, L, V)`` forward): the left-padded (N, L) rows as they are.
+The scorer's one contract is ``last_logits_packed(ids, positions, seg,
+last_index, **kw) -> (N, V)`` (``models/decoder.py``'s ``DecoderLM``:
+``Qwen3LM``, ``models/qwen3.py``, whose attention masks by segment ids,
+and ``Lfm2MoeLM``, ``models/lfm2_moe.py``, whose short convolutions also
+stop at segment starts; the default ``CausalLM``, ``models/encoder.py``,
+with a causal same-segment bias). A model without it is refused.
 
 Batches are not padded to a power of two: a pair's score does not depend
-on what it is batched or packed with. On the card ``Qwen3LM`` runs the
+on what it is packed with. On the card ``Qwen3LM`` runs the
 ``rope_prep`` and flash-attention kernels, ``Lfm2MoeLM`` those and its
 short-conv and expert kernels.
 
 Spans (``utils/tracing.py``): ``rerank.prompts`` (rendering, the
-bucketed tokenization and the packing, with ``tokens``, the real prompt
-tokens, ``slots``, the token slots the forward runs, ``rows`` and
-``path``, ``packed`` or ``bucketed``), ``rerank.forward`` (the chunks'
-uploads and launches) and ``rerank.readback``, each with ``pairs``. A packed scorer that names ``device_counts`` (``Lfm2MoeLM``:
-``moe_assignments``, ``moe_busiest``) sums them on the card during the
-forward; they come back in the readback's one copy and are set on the
-``rerank.forward`` span's counts then, after it closed (``/stats`` reads
-them from the same dict).
+tokenization and the packing, with ``tokens``, the real prompt tokens,
+``slots``, the token slots the forward runs, and ``rows``),
+``rerank.forward`` (the chunks' uploads and launches) and
+``rerank.readback``, each with ``pairs``. A scorer that names
+``device_counts`` (``Lfm2MoeLM``: ``moe_assignments``, ``moe_busiest``)
+sums them on the card during the forward; they come back in the
+readback's one copy and are set on the ``rerank.forward`` span's counts
+then, after it closed (``/stats`` reads them from the same dict).
 """
 
 from __future__ import annotations
@@ -50,7 +47,7 @@ import torch
 
 from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
 from rag_arc_tpu_torch.utils.data_model import Document
-from rag_arc_tpu_torch.models.encoder import CausalLM, TransformerConfig, init_causal_lm
+from rag_arc_tpu_torch.models.encoder import TransformerConfig, init_causal_lm
 from rag_arc_tpu_torch.models.packing import pack_token_lists
 from rag_arc_tpu_torch.rerank.base import RerankerBase
 from rag_arc_tpu_torch.utils.tracing import stage
@@ -73,20 +70,6 @@ def _p_yes(last: torch.Tensor, yes_id: int, no_id: int) -> torch.Tensor:
     """(B,) f32 P(yes): a two-way log-softmax over the no/yes logits."""
     pair = torch.stack([last[:, no_id], last[:, yes_id]], dim=-1).float()
     return torch.exp(torch.log_softmax(pair, dim=-1)[:, 1])
-
-
-def _score_batch(
-    model, ids: torch.Tensor, mask: torch.Tensor, yes_id: int, no_id: int
-) -> torch.Tensor:
-    """(B,) f32 P(yes) per row at the last position (rows left-padded).
-    Only the last hidden state goes through the vocabulary head."""
-    if hasattr(model, "last_logits"):
-        last = model.last_logits(ids, mask)
-    elif isinstance(model, CausalLM):
-        last = model(ids, mask, True)
-    else:
-        last = model(ids, mask)[:, -1, :]  # (B, V)
-    return _p_yes(last, yes_id, no_id)
 
 
 def pack_prompts(
@@ -113,8 +96,6 @@ def _model_device(model) -> torch.device:
 
 
 class CrossEncoderReranker(RerankerBase):
-    _LEN_BUCKETS = (64, 128, 256, 512)
-
     # device byte budget for one chunk's einsum-attention probabilities
     # (B, heads, L, L) f32; chunks dispatch back to back and come back in
     # one readback
@@ -134,18 +115,11 @@ class CrossEncoderReranker(RerankerBase):
         """The default scorer: a ``CausalLM`` over ``cfg`` (768×12 causal by
         default) with seeded random weights, or ``params`` (its state_dict,
         e.g. from ``models.convert.causal_lm_state_dict_from_flax``)."""
-        self.cfg = cfg or TransformerConfig(causal=True)
-        self.device = torch.device(device)
-        self.model = init_causal_lm(self.cfg, seed, self.device)
-        if params is not None:
-            self.model.load_state_dict(params)
-        self.tokenizer = tokenizer or HashTokenizer(
-            vocab_size=self.cfg.vocab_size, max_len=min(max_length, self.cfg.max_len)
-        )
-        self.instruction = instruction
-        self.max_length = min(max_length, self.cfg.max_len)
-        self.yes_id = self.tokenizer.token_id("yes")
-        self.no_id = self.tokenizer.token_id("no")
+        cfg = cfg or TransformerConfig(causal=True)
+        max_length = min(max_length, cfg.max_len)
+        self._bind(init_causal_lm(cfg, seed, torch.device(device)), params,
+                   tokenizer or HashTokenizer(vocab_size=cfg.vocab_size, max_len=max_length),
+                   instruction, max_length, "yes", "no", None)
 
     @classmethod
     def from_causal_lm(
@@ -160,15 +134,21 @@ class CrossEncoderReranker(RerankerBase):
         *,
         device: torch.device | str | None = None,
     ) -> "CrossEncoderReranker":
-        """Build over any causal LM module with ``last_logits(ids, mask)`` or
-        a ``(B, L, V)`` forward — e.g. a ``Qwen3LM`` from
-        ``models.qwen3.load_hf_qwen3`` or an ``Lfm2MoeLM`` from
-        ``models.lfm2_moe.load_hf_lfm2_moe``, which also offer
-        ``last_logits_packed`` and so take the packed path (module
-        docstring). ``params``, when given, is a
-        state_dict loaded into ``model``; ``device`` is the model's (given
-        or read from its parameters)."""
+        """Build over a causal LM module with ``last_logits_packed`` — e.g.
+        a ``Qwen3LM`` from ``models.qwen3.load_hf_qwen3`` or an
+        ``Lfm2MoeLM`` from ``models.lfm2_moe.load_hf_lfm2_moe``. ``params``,
+        when given, is a state_dict loaded into ``model``; ``device`` is the
+        model's (given or read from its parameters)."""
         self = cls.__new__(cls)
+        self._bind(model, params, tokenizer, instruction, max_length, yes_token, no_token,
+                   device)
+        return self
+
+    def _bind(self, model, params, tokenizer, instruction, max_length, yes_token, no_token,
+              device) -> None:
+        if not hasattr(model, "last_logits_packed"):
+            raise TypeError(f"{type(model).__name__} has no last_logits_packed, the "
+                            "reranker's scoring contract")
         self.device = _model_device(model) if device is None else torch.device(device)
         if _model_device(model) != self.device:
             raise ValueError(
@@ -181,32 +161,15 @@ class CrossEncoderReranker(RerankerBase):
         self.tokenizer = tokenizer
         self.instruction = instruction
         self.max_length = max_length
-        self.yes_id = tokenizer.token_id(yes_token) if hasattr(
-            tokenizer, "token_id"
-        ) else tokenizer.convert_tokens_to_ids(yes_token)
-        self.no_id = tokenizer.token_id(no_token) if hasattr(
-            tokenizer, "token_id"
-        ) else tokenizer.convert_tokens_to_ids(no_token)
-        return self
+        token_id = getattr(tokenizer, "token_id", None) or tokenizer.convert_tokens_to_ids
+        self.yes_id, self.no_id = token_id(yes_token), token_id(no_token)
 
     def _encode_bucketed(self, prompts: Sequence[str]):
-        """Tokenize once, then pad the batch on the left to the smallest
-        length bucket that fits, or keep the tail of a longer one."""
+        """Tokenize once: ``(ids, mask)`` (N, L), left-padded to the longest
+        prompt, the tail of one longer than ``max_length`` kept (real tokens
+        sit at the end under left padding)."""
         ids, mask = self.tokenizer.batch_encode(prompts, left_pad=True)
-        needed = ids.shape[1]
-        bucket = next(
-            (b for b in self._LEN_BUCKETS if needed <= b <= self.max_length),
-            self.max_length,
-        )
-        if bucket > needed:
-            pad = bucket - needed
-            ids = np.pad(ids, ((0, 0), (pad, 0)))
-            mask = np.pad(mask, ((0, 0), (pad, 0)))
-        elif bucket < needed:
-            # keep the tail: real tokens sit at the end under left padding
-            ids = ids[:, -bucket:]
-            mask = mask[:, -bucket:]
-        return ids, mask
+        return ids[:, -self.max_length:], mask[:, -self.max_length:]
 
     def _render(self, query: str, document: str) -> str:
         return PROMPT_TEMPLATE.format(
@@ -225,33 +188,17 @@ class CrossEncoderReranker(RerankerBase):
 
     @torch.inference_mode()
     def _score_prompts(self, prompts: Iterable[str]) -> np.ndarray:
-        """Render (``prompts`` may be a lazy iterable) and encode → pack
-        (a scorer with ``last_logits_packed``) or keep the bucketed rows →
+        """Render (``prompts`` may be a lazy iterable) and encode → pack →
         chunk at the attention byte budget → dispatch every chunk → one
         readback. The single scoring path of both entry points."""
-        packed = hasattr(self.model, "last_logits_packed")
         with stage("rerank.prompts") as span:
             prompts = list(prompts)
             ids, mask = self._encode_bucketed(prompts)
-            if packed:
-                rows, row_of, last = pack_prompts(ids, mask, self.max_length)
-                n_rows, length = rows.shape[1:]
-            else:
-                n_rows, length = ids.shape
+            rows, row_of, last = pack_prompts(ids, mask, self.max_length)
+            n_rows, length = rows.shape[1:]
             span.update(pairs=len(prompts), tokens=int(mask.sum()), slots=n_rows * length,
-                        rows=n_rows, path="packed" if packed else "bucketed")
+                        rows=n_rows)
         n, max_chunk = len(prompts), self._max_chunk(length)
-        if not packed:
-            with stage("rerank.forward", pairs=n):
-                ids_d = torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
-                mask_d = torch.from_numpy(np.ascontiguousarray(mask)).to(self.device)
-                pending = [
-                    _score_batch(self.model, ids_d[lo : lo + max_chunk],
-                                 mask_d[lo : lo + max_chunk], self.yes_id, self.no_id)
-                    for lo in range(0, n, max_chunk)
-                ]
-            with stage("rerank.readback", pairs=n):
-                return torch.cat(pending).cpu().numpy()
         # a pair never spans two rows, so a chunk of rows holds whole pairs:
         # in row order, each chunk's pairs are one run of ``order``
         order = np.argsort(row_of, kind="stable")

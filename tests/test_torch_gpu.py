@@ -7,7 +7,7 @@ padded d, ragged lengths and query blocks, g up to 256, dead sub-tiles,
 KV heads shared by 1-8 query heads, ``out=`` views, the launch counts,
 the wrappers' refusals, and small Qwen3 forwards through both attention
 kernels (one launch each a layer, no plain version), the reranker's
-packed rows against its bucketed ones; an HTTP ``/batch``
+packed rows against each pair scored alone; an HTTP ``/batch``
 served at B=300 over a two-level-sized store (the producer and the
 select launch once each) and a blob-backed store's snapshot round trip
 on the card. They skip where no
@@ -741,10 +741,11 @@ def test_qwen3_forward_launches_each_kernel_once_a_layer(cuda, monkeypatch):
 def test_qwen3_reranker_packed_close_to_bucketed(cuda):
     """The reranker at Qwen3-Reranker-0.6B's widths (4 layers, seeded bf16
     weights) over 100 NQ-like prompts (~143 tokens): P(yes) of the packed
-    path (~3-8 pairs a 512-token row) against the bucketed rows on the
-    same model, within the bf16 bound of the flash-vs-einsum test above,
-    and the same top 10 up to near-ties; one rope_prep and one flash
-    launch a layer for the whole pass."""
+    path (~3-8 pairs a 512-token row) against each pair scored alone on
+    its left-padded row through ``last_logits`` on the same model, within
+    the bf16 bound of the flash-vs-einsum test above, and the same top 10
+    up to near-ties; one rope_prep and one flash launch a layer for the
+    whole pass."""
     from rag_arc_tpu_torch.models import qwen3 as tq
     from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
     from rag_arc_tpu_torch.ops import flash_attention as fa
@@ -774,19 +775,20 @@ def test_qwen3_reranker_packed_close_to_bucketed(cuda):
     ids, mask = rr._encode_bucketed([rr._render(query, d.content) for d in docs])
     rows, _, _ = tce.pack_prompts(ids, mask, 512)
     assert rows.shape[1] <= 40
+    ids_d, mask_d = torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)
     with torch.inference_mode():
-        bucketed = tce._score_batch(model, torch.from_numpy(ids).to(cuda),
-                                    torch.from_numpy(mask).to(cuda), rr.yes_id,
-                                    rr.no_id).cpu().numpy()
+        alone = torch.cat([
+            tce._p_yes(model.last_logits(ids_d[i : i + 1], mask_d[i : i + 1]), rr.yes_id,
+                       rr.no_id) for i in range(len(docs))]).cpu().numpy()
     assert np.isfinite(packed).all()
-    np.testing.assert_allclose(packed, bucketed, rtol=0, atol=5e-2)
+    np.testing.assert_allclose(packed, alone, rtol=0, atol=5e-2)
     # bf16 P(yes) ties and near-ties (1e-3 apart) that rounding reorders:
-    # rank by rank, the packed top 10 reads the bucketed top 10's scores
+    # rank by rank, the packed top 10 reads the alone top 10's scores
     # within a few bf16 ulps of P (2^-8 near 0.7); the scores spread ~0.1
     top_p = np.argsort(-packed, kind="stable")[:10]
-    top_b = np.argsort(-bucketed, kind="stable")[:10]
-    np.testing.assert_allclose(bucketed[top_p], bucketed[top_b], rtol=0, atol=1e-2)
-    assert np.std(bucketed) > 0.05
+    top_a = np.argsort(-alone, kind="stable")[:10]
+    np.testing.assert_allclose(alone[top_p], alone[top_a], rtol=0, atol=1e-2)
+    assert np.std(alone) > 0.05
 
 
 # -- the kernel probe's kernels: piped producer, fused top-k, corpus stream ------

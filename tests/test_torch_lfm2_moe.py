@@ -28,7 +28,7 @@ from rag_arc_tpu_torch.models.lfm2_moe import Lfm2MoeConfig, Lfm2MoeLM, init_lfm
 from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
 from rag_arc_tpu_torch.ops import moe as moe_ops
 from rag_arc_tpu_torch.ops import short_conv as sc
-from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker, pack_prompts
+from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker, _p_yes, pack_prompts
 from rag_arc_tpu_torch.utils import tracing
 from rag_arc_tpu_torch.utils.data_model import Document
 
@@ -223,34 +223,25 @@ def test_grouped_gemm_path_matches_the_expert_loop(dtype):
     assert not torch.allclose(bad.float(), want.float(), rtol=0, atol=tol)
 
 
-def _bucketed(model):
-    """The model seen through ``last_logits`` only: the bucketed path."""
-
-    class Bucketed(torch.nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.inner = model
-
-        def last_logits(self, ids, mask):
-            return model.last_logits(ids, mask)
-
-    return Bucketed()
-
-
 DOCS = ["the cat sat on the mat", "dogs chase cats in the yard all day long",
         "qubits", "bond yields rose on inflation fears again", "a b c d e f g h",
         "chocolate cake with dark cocoa and cream"]
 
 
 def test_packed_scores_equal_bucketed_scores_through_the_reranker():
+    """The reranker's packed P(yes) against each pair scored alone: its
+    left-padded row of the encoded batch through ``last_logits``."""
     model = _model()
     tok = HashTokenizer(vocab_size=model.cfg.vocab_size, max_len=128)
     packed = CrossEncoderReranker.from_causal_lm(model, None, tok, max_length=128)
-    bucketed = CrossEncoderReranker.from_causal_lm(_bucketed(model), None, tok, max_length=128)
     docs = [Document(content=d) for d in DOCS]
+    ids, mask = (torch.from_numpy(a) for a in packed._encode_bucketed(
+        [packed._render("what do cats do", d.content) for d in docs]))
     with torch.no_grad():
         a = packed.compute_scores("what do cats do", docs)
-        b = bucketed.compute_scores("what do cats do", docs)
+        last = torch.cat([model.last_logits(ids[i : i + 1], mask[i : i + 1])
+                          for i in range(len(docs))])
+    b = _p_yes(last, packed.yes_id, packed.no_id).numpy()
     assert np.ptp(a) > 1e-3
     # P(yes) in f32 from the same arithmetic on packed and padded rows
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)

@@ -5,9 +5,10 @@ within 1e-5 (f32: summation order only), over both scorers — a tiny
 Qwen3 through ``from_causal_lm`` and the tiny default ``CausalLM``. Also:
 the ``CausalLM`` logits against Flax, scores that do not depend on batch
 composition, ``rerank_batch`` equal to per-query ``rerank``, chunking, and
-score stamping on copies. The packed path (a Qwen3 scorer): scores equal to
-the bucketed path's on the same model, the packing's layout, its span
-counts, and its fill on NQ-like lengths."""
+score stamping on copies. The one scoring path packs the pairs several to a
+row for every scorer: scores equal to each pair scored alone on the same
+model, the packing's layout, its span counts, and its fill on NQ-like
+lengths."""
 
 import time
 
@@ -113,9 +114,8 @@ def test_rerank_batch_matches_jax_and_per_query(pair):
 
 
 def test_scores_do_not_depend_on_batch_composition(pair):
-    """A pair scores the same alone (small bucket, little padding) as next
-    to a long document (bigger bucket, heavy left padding) or in any
-    order."""
+    """A pair scores the same alone (a row of its own) as packed next to a
+    long document, or in any order."""
     _, tr = pair
     short = Document(content="short relevant answer")
     long_doc = Document(content="filler words " * 40)
@@ -171,8 +171,7 @@ def test_causal_lm_matches_flax():
     want_last = np.asarray(fmodel.apply(params, jnp.asarray(ids), jnp.asarray(mask), True))
     with torch.no_grad():
         got = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
-        got_last = model(torch.from_numpy(ids), torch.from_numpy(mask), True).numpy()
-    np.testing.assert_allclose(got_last, want_last, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[:, -1, :], want_last, rtol=0, atol=1e-5)
     # pad query rows: the same -1e9 bias on both sides, so all rows match
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
@@ -199,12 +198,48 @@ def test_from_causal_lm_checks_the_device():
         tce.CrossEncoderReranker.from_causal_lm(model, None, tok, device="meta")
 
 
+def test_from_causal_lm_refuses_a_model_without_the_packed_contract():
+    class Unpacked(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.zeros(1))
+
+        def last_logits(self, ids, mask):
+            return torch.zeros(ids.shape[0], 128)
+
+    tok = HashTokenizer(vocab_size=128, max_len=64)
+    with pytest.raises(TypeError, match="last_logits_packed"):
+        tce.CrossEncoderReranker.from_causal_lm(Unpacked(), None, tok)
+
+
+def test_causal_lm_packed_equals_each_pair_alone():
+    """``CausalLM.last_logits_packed`` over pairs packed several to a row:
+    each pair's logits equal its own left-padded row through ``forward``
+    within 1e-5 at f32."""
+    model = tenc.init_causal_lm(tenc.TransformerConfig.tiny(dtype=torch.float32), 3, "cpu")
+    rng = np.random.default_rng(26)
+    lengths = rng.integers(1, 40, 23)
+    width = int(lengths.max()) + 5
+    ids = np.zeros((len(lengths), width), dtype=np.int32)
+    mask = np.arange(width)[None, :] >= (width - lengths)[:, None]
+    ids[mask] = rng.integers(4, 512, int(lengths.sum()))
+    rows, row_of, last = tce.pack_prompts(ids, mask, 64)
+    assert rows.shape[1] < len(lengths)  # several pairs share a row
+    with torch.no_grad():
+        got = model.last_logits_packed(*[torch.from_numpy(a) for a in (*rows, last)]).numpy()
+        want = np.concatenate([
+            model(torch.from_numpy(ids[i : i + 1]), torch.from_numpy(mask[i : i + 1]))[:, -1]
+            .numpy() for i in range(len(lengths))])
+    assert got.shape == want.shape and float(np.abs(want).max()) > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 def test_prompt_is_the_jax_packages():
     assert tce.PROMPT_TEMPLATE == jce.PROMPT_TEMPLATE
     assert tce.DEFAULT_INSTRUCTION == jce.DEFAULT_INSTRUCTION
 
 
-# -- the packed path (a scorer with last_logits_packed) -------------------------------
+# -- the packed path -------------------------------------------------------------------
 
 
 def _tiny_qwen3_reranker(attn_impl="auto", max_length=512, seed=0):
@@ -214,13 +249,14 @@ def _tiny_qwen3_reranker(attn_impl="auto", max_length=512, seed=0):
     return tce.CrossEncoderReranker.from_causal_lm(model, None, tok, max_length=max_length)
 
 
-def _bucketed_scores(rr, prompts):
-    """The bucketed path's P(yes) on the same model: the left-padded rows
-    through ``last_logits``."""
-    ids, mask = rr._encode_bucketed(prompts)
+def _alone_scores(rr, prompts):
+    """P(yes) of each pair scored alone on the same model: its left-padded
+    row of the encoded batch through ``last_logits``."""
+    ids, mask = (torch.from_numpy(a) for a in rr._encode_bucketed(prompts))
     with torch.inference_mode():
-        return tce._score_batch(rr.model, torch.from_numpy(ids), torch.from_numpy(mask),
-                                rr.yes_id, rr.no_id).numpy()
+        return np.concatenate([
+            tce._p_yes(rr.model.last_logits(ids[i : i + 1], mask[i : i + 1]), rr.yes_id,
+                       rr.no_id).numpy() for i in range(len(prompts))])
 
 
 def _long_docs(seed, n, words=(120, 220)):
@@ -247,15 +283,15 @@ def prompt_span():
 def test_packed_scores_equal_the_bucketed_path(attn_impl, case, prompt_span):
     """Short prompts, 2-8 pairs a 512-token row; or, at max_length 192,
     long prompts cut to their tail beside short ones packed two or three
-    a row: the packed P(yes) equals the bucketed path's on the same model
-    and weights, pair by pair in the pairs' order."""
+    a row: the packed P(yes) equals each pair scored alone on its
+    left-padded row, on the same model and weights, in the pairs' order."""
     max_length = 512 if case == "short" else 192
     rr = _tiny_qwen3_reranker(attn_impl, max_length)
     docs = _docs(10, 40) + (_long_docs(11, 6) if case == "cut" else [])
     docs = [docs[i] for i in np.random.default_rng(12).permutation(len(docs))]
     prompts = [rr._render("which doc answers the query", d.content) for d in docs]
     got = rr.compute_scores("which doc answers the query", docs)
-    np.testing.assert_allclose(got, _bucketed_scores(rr, prompts), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, _alone_scores(rr, prompts), rtol=0, atol=1e-5)
     ids, mask = rr._encode_bucketed(prompts)
     rows, row_of, last = tce.pack_prompts(ids, mask, max_length)
     per_row = np.bincount(row_of)
@@ -269,7 +305,7 @@ def test_packed_scores_equal_the_bucketed_path(attn_impl, case, prompt_span):
             seg = rows[2, row_of[i]] == rows[2].reshape(-1)[last[i]]
             np.testing.assert_array_equal(rows[0, row_of[i]][seg], full[-max_length:])
     (span,) = prompt_span()
-    assert span.attrs["path"] == "packed" and span.attrs["rows"] == rows.shape[1]
+    assert span.attrs["rows"] == rows.shape[1]
     assert span.attrs["slots"] == span.attrs["rows"] * max_length
     assert span.attrs["tokens"] == int(mask.sum()) and span.attrs["pairs"] == len(docs)
 
@@ -305,7 +341,7 @@ def test_packed_chunks_give_the_same_scores():
     got = rr.compute_scores("alpha", docs)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     prompts = [rr._render("alpha", d.content) for d in docs]
-    np.testing.assert_allclose(got, _bucketed_scores(rr, prompts), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, _alone_scores(rr, prompts), rtol=0, atol=1e-5)
 
 
 def test_packed_rerank_batch_matches_per_query(prompt_span):
@@ -349,7 +385,7 @@ def test_packed_scores_match_jax(qwen3_pair_packing, prompt_span):
     got = tr.compute_scores("which doc answers the query", docs)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     (span,) = prompt_span()
-    assert span.attrs["path"] == "packed" and span.attrs["rows"] < len(docs)
+    assert span.attrs["rows"] < len(docs)
     queries = ["alpha beta", "delta query"]
     cands = [_docs(20, 11), _docs(21, 6)]
     t_out = tr.rerank_batch(queries, cands, k=5)
@@ -362,8 +398,9 @@ def test_packed_scores_match_jax(qwen3_pair_packing, prompt_span):
 
 def test_encode_bucketed_runs_once_a_pass_with_its_contract(prompt_span):
     """Through ``self`` once per scoring pass, as a wrapper on the instance
-    sees it: left-padded rows of a bucket's width, the tail kept, each
-    mask row summing to its pair's real token count."""
+    sees it: left-padded rows as wide as the longest prompt, at most
+    ``max_length``, the tail kept, each mask row summing to its pair's real
+    token count."""
     rr = _tiny_qwen3_reranker(max_length=128)
     encode, seen = rr._encode_bucketed, []
 
@@ -387,27 +424,31 @@ def test_encode_bucketed_runs_once_a_pass_with_its_contract(prompt_span):
     assert [s.attrs["pairs"] for s in prompt_span()] == [7, 3]
 
 
-def test_causal_lm_scorer_keeps_the_bucketed_path(causal_pair, prompt_span):
+def test_causal_lm_scorer_keeps_the_bucketed_path(prompt_span):
+    """The default ``CausalLM`` scorer, which kept left-padded bucketed rows
+    before every scorer packed, now takes the packed path: fewer rows than
+    pairs, and ``tokens`` / ``slots`` on the span read the packing."""
     from rag_arc_tpu_torch.utils import tracing
 
-    _, tr = causal_pair
-    assert not hasattr(tr.model, "last_logits_packed")
+    tr = tce.CrossEncoderReranker(cfg=tenc.TransformerConfig.tiny(causal=True, max_len=512),
+                                  device="cpu")
+    docs = _docs(24, 12)
     before = tracing.get_tracer().summary().get("rerank.prompts", {}).get("counts", {})
-    tr.compute_scores("q", _docs(24, 6))
+    tr.compute_scores("q", docs)
     (span,) = prompt_span()
-    ids, _ = tr._encode_bucketed([tr._render("q", d.content) for d in _docs(24, 6)])
-    assert span.attrs["path"] == "bucketed"
-    assert (span.attrs["rows"], span.attrs["slots"]) == (6, ids.size)
+    ids, mask = tr._encode_bucketed([tr._render("q", d.content) for d in docs])
+    rows, _, _ = tce.pack_prompts(ids, mask, 512)
+    assert span.attrs["rows"] == rows.shape[1] < span.attrs["pairs"] == 12
+    assert (span.attrs["tokens"], span.attrs["slots"]) == (int(mask.sum()), rows[0].size)
     after = tracing.get_tracer().summary()["rerank.prompts"]["counts"]
-    assert after["path=bucketed"] == before.get("path=bucketed", 0) + 1
-    assert after.get("path=packed", 0) == before.get("path=packed", 0)
+    assert after["slots"] == before.get("slots", 0) + rows[0].size
 
 
 def test_packing_fills_nq_like_prompts():
     """NQ's length laws (query words lognormal mean 9.16, passage words
-    78.88, sigma 0.3, caps 30 and 400) through the judge template: the
-    buckets run about half their slots on padding, first-fit-decreasing
-    into 512-token rows fills 85% or more."""
+    78.88, sigma 0.3, caps 30 and 400) through the judge template: rows
+    left-padded to the longest prompt run over 30% of their slots on
+    padding, first-fit-decreasing into 512-token rows fills 85% or more."""
     rr = _tiny_qwen3_reranker()
     rng = np.random.default_rng(25)
 
@@ -416,12 +457,12 @@ def test_packing_fills_nq_like_prompts():
         return [" ".join(f"w{int(w)}" for w in rng.integers(0, 30000, int(m)))
                 for m in np.clip(np.rint(x), 1, cap)]
 
-    tokens = slots = bucket_slots = 0
+    tokens = slots = padded_slots = 0
     for query in words(9.16, 30, 8):
         prompts = [rr._render(query, p) for p in words(78.88, 400, 100)]
         ids, mask = rr._encode_bucketed(prompts)
         rows, _, _ = tce.pack_prompts(ids, mask, 512)
-        tokens, slots, bucket_slots = (tokens + mask.sum(), slots + rows[0].size,
-                                       bucket_slots + ids.size)
+        tokens, slots, padded_slots = (tokens + mask.sum(), slots + rows[0].size,
+                                       padded_slots + ids.size)
     assert tokens / slots >= 0.85
-    assert tokens / bucket_slots < 0.7
+    assert tokens / padded_slots < 0.7

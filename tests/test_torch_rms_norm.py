@@ -1,6 +1,7 @@
 """The residual add + RMSNorm op (``ops/rms_norm.py``) and the decoder
 loops that carry each layer's pending delta into the next norm
-(``models/qwen3.py``, ``models/lfm2_moe.py``).
+(``models/decoder.py``'s shell over ``models/qwen3.py`` and
+``models/lfm2_moe.py``).
 
 On the CPU: the plain version against the former chain (``x + delta``,
 then ``RMSNorm.forward``) bit for bit; both tiny models against a copy of
@@ -18,9 +19,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from rag_arc_tpu_torch.models import qwen3
+from rag_arc_tpu_torch.models import decoder, qwen3
 from rag_arc_tpu_torch.models.lfm2_moe import Lfm2MoeConfig, init_lfm2_moe
-from rag_arc_tpu_torch.models.qwen3 import Qwen3Config, RMSNorm, _linear, init_qwen3
+from rag_arc_tpu_torch.models.decoder import RMSNorm, cast_linear
+from rag_arc_tpu_torch.models.qwen3 import Qwen3Config, init_qwen3
 from rag_arc_tpu_torch.ops import rms_norm as rn
 from rag_arc_tpu_torch.rerank.cross_encoder import pack_prompts
 
@@ -123,9 +125,9 @@ def _former_qwen3_trunk(model, ids, ctx):
     x = model.embed_tokens(ids.long()).to(cfg.dtype)
     for layer in model.layers:
         x = x + layer.self_attn(layer.input_layernorm(x), ctx)
-        gu = _linear(layer.gateup_proj, layer.post_attention_layernorm(x), cfg.dtype)
+        gu = cast_linear(layer.gateup_proj, layer.post_attention_layernorm(x), cfg.dtype)
         gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size:]
-        x = x + _linear(layer.down_proj, F.silu(gate) * up, cfg.dtype)
+        x = x + cast_linear(layer.down_proj, F.silu(gate) * up, cfg.dtype)
     return x
 
 
@@ -219,7 +221,7 @@ def test_decoder_equals_the_former_per_module_loop(kind, attn_impl, entry):
 @pytest.mark.parametrize("kind", ["qwen3", "lfm2"])
 def test_every_norm_site_goes_through_qwen3s_wrappable_name(kind, attn_impl, calls_a_layer,
                                                             monkeypatch):
-    """A harness wraps ``models/qwen3.py``'s ``add_rms_norm`` and reaches
+    """A harness wraps ``models/decoder.py``'s ``add_rms_norm`` and reaches
     every norm site of both decoders on the kernel path: 2·L + 1 calls a
     packed forward, the first with no delta; the einsum path never calls
     it."""
@@ -230,7 +232,7 @@ def test_every_norm_site_goes_through_qwen3s_wrappable_name(kind, attn_impl, cal
         seen.append(delta is None)
         return rn.add_rms_norm(x, delta, weight, eps)
 
-    monkeypatch.setattr(qwen3, "add_rms_norm", counting)
+    monkeypatch.setattr(decoder, "add_rms_norm", counting)
     ids, mask = _left_padded((12, 5, 9))
     rows, _, last = pack_prompts(ids, mask, 16)
     with torch.no_grad():
@@ -343,8 +345,8 @@ def test_packed_forward_launches_once_a_norm_site_without_host_sync(cuda, kind, 
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert rn.launches - before == 2 * model.cfg.num_hidden_layers + 1
-        # both decoders reach the op through qwen3.residual_norm
-        monkeypatch.setattr(qwen3, "add_rms_norm", rn.add_rms_norm_plain)
+        # both decoders reach the op through decoder.residual_norm
+        monkeypatch.setattr(decoder, "add_rms_norm", rn.add_rms_norm_plain)
         want = model.last_logits_packed(*args)
     err = (got.float() - want.float()).abs()
     if dtype == torch.float32:

@@ -199,8 +199,9 @@ def test_span_and_profiler_range_share_the_clock():
     span = next(s for s in tracing.spans(t0) if s.name == "test.clock")
     rng = next(e for e in result.events() if e.name() == "test.clock.range")
     start, end = rng.start_ns(), rng.start_ns() + rng.duration_ns()
-    assert abs(start - span.start_ns) < 1_000_000
-    assert abs(end - span.end_ns) < 1_000_000
+    # the range nests inside the span on the one clock, within 1 ms; how
+    # far inside depends on scheduling, two clocks would be off by far more
+    assert span.start_ns - 1_000_000 <= start and end <= span.end_ns + 1_000_000
     # no profiler range is opened by a span
     assert not any(e.name().startswith("test.clock") and e.name() != "test.clock.range"
                    for e in result.events())
