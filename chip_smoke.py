@@ -88,7 +88,15 @@ Phases, each printing its own lines and times:
      - multipath: the bf16 index and the 2M BM25 index over one position
        space, k_path 50, RRF k 60, B = 32, 4 batches of selective
        queries, each pass one ``transfer_pool()`` stream (one flush),
-       fused ids equal to ``RRFusion``'s;
+       fused ids equal to ``RRFusion``'s, one producer launch a dense
+       batch;
+     - crossover: the bf16 cosine search's direct path (``masked_topk``)
+       against its two-level path (``two_level_topk``, the index's path on
+       the card past 131,072 rows) at B in {1, 8, 32, 128} over 2,682,880
+       (the NQ index), 2,000,000, 262,144, 131,072 and 65,536 rows, k =
+       100, in turns: ms as issued and device ms with the host ahead, the
+       bytes bound, positions equal but among equal scores; each corpus's
+       B = 1 search split into producer, select and rescore;
      - bf16 l2 over the first 2^20 rows, 5 batches, recall@10 against an
        f32 l2 oracle;
      - int8 cosine with the default int4 residual refine and kf_mult 2, 30
@@ -235,7 +243,8 @@ with this tree's, each in a process of its own.
 Every check that fails ends the run with a non-zero exit; a serving phase
 fails on any response other than 200 and on any client error. Without a
 CUDA card it exits non-zero at once. The second-to-last line is a JSON object
-describing each kernel; the last line is the run's JSON status.
+describing each kernel and the crossover's rows; the last line is the run's
+JSON status.
 """
 
 from __future__ import annotations
@@ -256,7 +265,7 @@ import numpy as np
 # the card's peak rates, the bound and CUDA-event timing: one copy, the
 # kernel A/B tool's
 from rag_arc_tpu_torch.tools.kernel_ab import (H100_BF16_PEAK, H100_F32_PEAK, H100_INT8_PEAK,
-                                               bound, cuda_ms, queued_ms)
+                                               ab_turns, bound, cuda_ms, queued_ms)
 
 SEED = 0
 K = 10
@@ -288,6 +297,14 @@ TIMING_N = 2_000_000
 CORPUS_N = 2_000_000
 BATCH = 512
 N_BATCHES = 30
+# the bf16 search's two paths in turns: the NQ index's rows (the served
+# cells), the index phase's, and smaller corpora on both sides of the
+# index's direct-path limit (flat.py's CARD_DIRECT_ROWS, 131,072), where
+# the two-level path's launches decide
+CROSS_NS = (2_682_880, 2_000_000, 262_144, 131_072, 65_536)
+CROSS_BS = (1, 8, 32, 128)
+CROSS_K = 100  # the served cells' recall depth
+CROSS_TIE = 1e-6  # f32 sums of 768 exact bf16 products in another order
 L2_N = 1 << 20
 L2_BATCHES = 5
 ORACLE_QUERIES = 128
@@ -1356,7 +1373,8 @@ def plain_select():
         tl.iterative_argmax_resid = kernel
 
 
-def search_split(torch, ss, label: str, stages: dict, sub, k_sel: int) -> None:
+def search_split(torch, ss, label: str, stages: dict, sub, k_sel: int,
+                 b: int = BATCH) -> None:
     """Device ms of one batch's search and its stages (CUDA events, mean of
     5 after one call outside the window). ``stages`` holds "search",
     "producer" and "select + rescore" (then any others); the select is
@@ -1374,7 +1392,7 @@ def search_split(torch, ss, label: str, stages: dict, sub, k_sel: int) -> None:
         t[name] = cuda_ms(fn, 5)
     rest = [n for n in stages if n not in ("search", "producer", "select", "select + rescore")
             and not n.startswith("select k=")]
-    report(f"{label} layers, one batch B={BATCH} (CUDA events): search {t['search']:.3f} ms; "
+    report(f"{label} layers, one batch B={b} (CUDA events): search {t['search']:.3f} ms; "
            f"producer {t['producer']:.3f} ms, select (k={k_sel}) {t['select']:.3f} ms, rescore "
            f"{t['select + rescore'] - t['select']:.3f} ms (select + rescore "
            f"{t['select + rescore']:.3f} less the select)"
@@ -1496,6 +1514,96 @@ def pooled_passes(torch, index, batches) -> None:
     report(f"sustained QPS read back per batch {', '.join(f'{v:.1f}' for v in qps[False])}; "
            f"through one TransferPool flush a pass {', '.join(f'{v:.1f}' for v in qps[True])} "
            f"(host clock, {len(batches)} x {BATCH} queries a pass, in turns)")
+
+
+def ties_only(s, p, ws, wp, tie: float) -> bool:
+    """Whether (s, p) equal the reference (ws, wp) but among equal scores:
+    ranked scores within 1e-5, the same empty slots, and a position that
+    differs only at a rank whose reference score lies within ``tie`` of a
+    neighbour's, or, as a set, of the k-th score. Host arrays, (B, k)."""
+    if not np.allclose(s, ws, rtol=0, atol=1e-5) or not np.array_equal(p < 0, wp < 0):
+        return False
+    for r in range(len(wp)):
+        sr = ws[r]
+        for j in np.nonzero(p[r] != wp[r])[0]:
+            near = np.abs(sr[max(j - 1, 0) : j + 2] - sr[j]) <= tie
+            if near.sum() < 2:
+                return False
+    return ids_off_ties(s, p, ws, wp, tie) == 0
+
+
+def phase_crossover(torch, sm, ss, dev, ns=CROSS_NS, bs=CROSS_BS) -> list[dict]:
+    """The bf16 cosine search's direct path (``masked_topk``: the corpus
+    widened to f32, a GEMV or GEMM, a sort of every score) against the
+    two-level path (``two_level_topk``: the producer and select kernels,
+    the rescore) at B in ``bs`` over each of ``ns`` rows, k =
+    CROSS_K, in turns (direct, two-level, two-level, direct): CUDA-event
+    ms as the host issues each call and device ms with the host ahead,
+    beside the bytes bound; positions equal but among equal scores. Then
+    the B = 1 two-level search split into producer, select and rescore on
+    each corpus. Returns one row a (rows, B)."""
+    from rag_arc_tpu_torch.index.flat import fetch_pair, normalize_raw
+    from rag_arc_tpu_torch.ops.topk import masked_topk
+    from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore, two_level_topk
+
+    phase(f"crossover: bf16 cosine search, direct vs two-level in turns, B in {bs}, "
+          f"rows in {ns}, d={DIM}, k={CROSS_K}, ~3% dead rows")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    out = []
+    for n in ns:
+        x = unit_rows(gen, n, DIM, torch.bfloat16, dev)
+        valid = torch.rand(n, generator=gen, device=dev) > 0.03
+        x[~valid] = 0
+        qs = unit_rows(gen, max(bs), DIM, torch.float32, dev)
+        for b in bs:
+            q = qs[:b]
+            fns = {"direct": lambda q=q: masked_topk(q, x, valid, CROSS_K),
+                   "two_level": lambda q=q: two_level_topk(q, x, valid, CROSS_K, g=G)}
+            before = sm.launches
+            got = normalize_raw(*fetch_pair(*fns["two_level"]()), b, CROSS_K, CROSS_K)
+            check(sm.launches == before + 1, f"the two-level search at B={b} launched the "
+                                             f"producer {sm.launches - before} times")
+            # the direct path on the query as the two-level path prepares it
+            # (normalized in f32, rounded once; cosine rows are unit, so ip):
+            # the index's direct path normalizes in bf16, ~1e-4 off
+            qc = prepare_queries(q, x.dtype, "cosine").float()
+            want = normalize_raw(*fetch_pair(*masked_topk(qc, x, valid, CROSS_K, "ip")), b,
+                                 CROSS_K, CROSS_K)
+            same = ties_only(*got, *want, CROSS_TIE)
+            moved = int((got[1] != want[1]).sum())
+            t = ab_turns(fns)
+            bd = bound(2.0 * b * n * DIM, H100_BF16_PEAK, 2.0 * n * DIM + 4.0 * b * DIM
+                       + 8.0 * b * CROSS_K)
+            row = {"rows": n, "b": b, **{k: [round(v, 4) for v in vs] for k, vs in t.items()},
+                   **bd, "ids_equal_but_ties": same, "positions_moved": moved}
+            dev_direct = float(np.mean(t["direct_queued_ms"]))
+            dev_two = float(np.mean(t["two_level_queued_ms"]))
+            issued = {name: float(np.mean(t[f"{name}_ms"])) for name in fns}
+            row["faster_as_issued"] = min(issued, key=issued.get)
+            row["faster_on_device"] = "two_level" if dev_two < dev_direct else "direct"
+            out.append(row)
+            report(f"rows {n}, B={b}: direct {' / '.join(f'{v:.3f}' for v in t['direct_ms'])} "
+                   f"ms, two-level {' / '.join(f'{v:.3f}' for v in t['two_level_ms'])} ms "
+                   f"(CUDA events as issued, in turns); device with the host ahead: direct "
+                   f"{dev_direct:.3f} ms, two-level {dev_two:.3f} ms ({dev_direct / dev_two:.2f}x); "
+                   f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}; two-level share "
+                   f"{bd['bound_ms'] / dev_two:.3f}); positions equal but among equal scores: "
+                   f"{same} ({moved} of {b * CROSS_K} slots moved)")
+            check(same, f"rows {n}, B={b}: two-level positions differ from the direct "
+                        f"path's past ties")
+        q = qs[:1]
+        qc = prepare_queries(q, x.dtype, "cosine")
+        sub = sm.subtile_max(qc, x, valid, G)
+        search_split(torch, ss, f"rows {n}, two-level", {
+            "search": lambda: two_level_topk(q, x, valid, CROSS_K, g=G),
+            "producer": lambda: sm.subtile_max(qc, x, valid, G),
+            "select + rescore": lambda: select_rescore(qc, x, valid, sub, CROSS_K, G),
+            "query prep": lambda: prepare_queries(q, x.dtype, "cosine"),
+            "direct": lambda: masked_topk(q, x, valid, CROSS_K),
+        }, sub, min(CROSS_K, sub.shape[1]), b=1)
+        del x, valid, qs, sub
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_index_l2(torch, sm, ss, dev, data) -> int:
@@ -1860,6 +1968,7 @@ def phase_multipath(torch, sm, ss, dev, index, bm25, data) -> None:
     """Dense (the 2M bf16 index) + BM25 (the 2M hybrid index) over one
     position space, fused by RRF, each pass one TransferPool stream."""
     from rag_arc_tpu_torch.ops.fusion_kernel import rrf_fuse_positions
+    from rag_arc_tpu_torch.ops.topk import masked_topk
     from rag_arc_tpu_torch.tools.bm25_synth import bm25_queries
     from rag_arc_tpu_torch.utils.data_model import Document
     from rag_arc_tpu_torch.utils.fusion import RRFusion, results_from_ranked_docs
@@ -1901,10 +2010,12 @@ def phase_multipath(torch, sm, ss, dev, index, bm25, data) -> None:
     report(f"ms per batch {', '.join(f'{v:.2f}' for v in times)} (host clock, median "
            f"{ms:.2f}, {BM25_B / ms * 1e3:.1f} QPS; dense dispatched first, then bm25, "
            f"primed, then fetched and fused); pool flushes per pass {flushes}; kernel "
-           f"launches {launches} (at B={BM25_B} the dense index takes its direct path: "
-           f"{4 * BM25_B * index.capacity} score bytes within its "
-           f"{index.SCORE_BYTES_BUDGET} budget)")
+           f"launches {launches} (the bf16 index of {index.capacity} rows on the card takes "
+           f"its two-level path at every B: one producer and one select launch a batch)")
     check(all(f == 1 for f in flushes), f"pool flushes per stream {flushes}, not 1")
+    check(launches["subtile_max"] == BM25_BATCHES * BM25_PASSES,
+          f"the dense path launched the producer {launches['subtile_max']} times for "
+          f"{BM25_BATCHES * BM25_PASSES} batches")
 
     dp, bp, fused = out[0]
     fusion = RRFusion(k=RRF_K)
@@ -1920,16 +2031,11 @@ def phase_multipath(torch, sm, ss, dev, index, bm25, data) -> None:
     check(agree == BM25_B, f"fused ids differ from RRFusion on {BM25_B - agree} queries")
 
     q = torch.from_numpy(dense_q[0]).to(dev)
-    direct = cuda_ms(lambda: index.search_device(q, MULTI_K_PATH), 5)
-    index._force_two_level = True
-    try:
-        index.search_device(q, MULTI_K_PATH)
-        torch.cuda.synchronize()
-        two_level = cuda_ms(lambda: index.search_device(q, MULTI_K_PATH), 5)
-    finally:
-        index._force_two_level = False
-    report(f"one dense B={BM25_B} k={MULTI_K_PATH} search: direct path {direct:.3f} ms, "
-           f"two-level kernel path {two_level:.3f} ms (CUDA events, mean of 5)")
+    direct = cuda_ms(lambda: masked_topk(q, index.emb, index.valid, MULTI_K_PATH), 5)
+    two_level = cuda_ms(lambda: index.search_device(q, MULTI_K_PATH), 5)
+    report(f"one dense B={BM25_B} k={MULTI_K_PATH} search: the direct path's masked_topk "
+           f"{direct:.3f} ms, the index's two-level kernel path {two_level:.3f} ms (CUDA "
+           f"events, mean of 5)")
 
 
 def phase_hybrid_retriever(torch, sm, ss, dev, store) -> int:
@@ -2938,6 +3044,7 @@ def coalesced_split(torch, sm, ss, store, texts: list[str]) -> None:
     """Device time of one coalesced B=512 batch, layer by layer (CUDA
     events), beside the host's tokenize, resolve and JSON times."""
     from rag_arc_tpu_torch.index.flat import fetch_pair
+    from rag_arc_tpu_torch.ops.topk import masked_topk
     from rag_arc_tpu_torch.ops.two_level import prepare_queries, select_rescore
     from rag_arc_tpu_torch.serving.app import _doc_ids_json, _doc_json
 
@@ -2957,10 +3064,11 @@ def coalesced_split(torch, sm, ss, store, texts: list[str]) -> None:
     prod = cuda_ms(lambda: sm.subtile_max(qc, index.emb, index.valid, G), 5)
     sel = cuda_ms(lambda: ss.iterative_argmax_resid(sub, K), 5)
     sel_res = cuda_ms(lambda: select_rescore(qc, index.emb, index.valid, sub, K, G), 5)
-    # the largest batch the store searches on its direct path (a score
-    # matrix within SCORE_BYTES_BUDGET): most coalesced batches under load
+    # the largest batch whose score matrix fits SCORE_BYTES_BUDGET: the
+    # direct path's (masked_topk) time there, which the card no longer takes
     b_direct = 1 << (index.SCORE_BYTES_BUDGET // (4 * index.capacity)).bit_length() - 1
-    direct = cuda_ms(lambda: index.search_device(q[:b_direct], K), 5)
+    direct = cuda_ms(lambda: masked_topk(q[:b_direct], index.emb, index.valid, K), 5)
+    two_level = cuda_ms(lambda: index.search_device(q[:b_direct], K), 5)
     scores, positions = fetch_pair(*index.search_device(q, K))
     t0 = time.perf_counter()
     hits = [store._resolve(s, p) for s, p in zip(scores, positions)]
@@ -2975,7 +3083,8 @@ def coalesced_split(torch, sm, ss, store, texts: list[str]) -> None:
     report(f"one coalesced batch B={len(texts)} L={length}, device (CUDA events, mean of 5): "
            f"encode {enc:.3f} ms, search {search:.3f} ms = producer {prod:.3f} + select "
            f"{sel:.3f} + rescore {sel_res - sel:.3f} (select + rescore {sel_res:.3f} less the "
-           f"select) + query prep; the direct path at B={b_direct} {direct:.3f} ms; host: "
+           f"select) + query prep; at B={b_direct} the two-level search {two_level:.3f} ms, "
+           f"the direct path's masked_topk {direct:.3f} ms; host: "
            f"tokenize {tok_ms:.2f} ms, resolve {resolve_ms:.2f} ms, JSON ids {ids_json_ms:.2f} "
            f"ms / full {full_json_ms:.2f} ms")
 
@@ -3025,7 +3134,6 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
         return answer(batch, **kwargs)
 
     pipe.batcher.batch_fn = recorded
-    direct_max = store.index.SCORE_BYTES_BUDGET // (4 * store.index.capacity)
     bodies = {mode: [[json.dumps({"queries": q, "k": K, "response": mode}).encode()
                       for q in per] for per in queries] for mode in ("ids", "full")}
     with served(pipe) as port:
@@ -3049,7 +3157,7 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
                f"batch_similarity_search_with_score's: {served_ids == direct}")
         check(served_ids == direct, "served ids differ from the direct search's")
         before_load = (sm.launches, ss.launches)
-        qps, padded = {}, 0
+        qps, n_batches = {}, 0
         for mode in ["ids"] * SERVE_IDS_PASSES + ["full"]:
             before = dict(pipe.batcher.stats)
             pipe.batcher.stats["max_batch_seen"] = 0
@@ -3057,24 +3165,20 @@ def phase_serve_2m(torch, sm, ss, dev, data, emb, tmp: Path):
             out = load_pass(port, bodies[mode])
             after = pipe.batcher.stats
             qps.setdefault(mode, []).append(out["qps"])
-            # the store pads a batch to a power of two before it searches
-            two_level = sum((1 << (b - 1).bit_length()) > direct_max for b in sizes)
-            padded += two_level
+            n_batches += len(sizes)
             report(f"response={mode}: {out['qps']:.1f} QPS ({out['requests']} requests of "
                    f"{SERVE_QPR} in {out['wall_s']:.2f} s, host clock), request p50 "
                    f"{out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms; batcher "
                    f"{after['batches'] - before['batches']} batches, max_batch_seen "
                    f"{after['max_batch_seen']}, sizes p50 {np.percentile(sizes, 50):.0f} / "
-                   f"mean {np.mean(sizes):.1f}; {two_level} of {len(sizes)} batches padded "
-                   f"past B={direct_max} (the two-level kernel path), the rest on the direct "
-                   f"path")
+                   f"mean {np.mean(sizes):.1f}")
         pipe.batcher.batch_fn = answer
         launches = (sm.launches - before_load[0], ss.launches - before_load[1])
         spread = (max(qps["ids"]) - min(qps["ids"])) / min(qps["ids"])
         report(f"the {SERVE_IDS_PASSES} ids passes within {100 * spread:.1f}% of the lowest "
                f"({'within' if spread <= 0.10 else 'NOT within'} 10%); kernel launches over "
                f"the load: subtile_max {launches[0]}, subtile_select {launches[1]}, against "
-               f"{padded} batches padded past B={direct_max} (reported, not held)")
+               f"{n_batches} batches (each on the two-level path; reported, not held)")
         check(min(launches) > 0, "the served traffic never reached the kernels")
         stats = http.get("/stats")
         http.close()
@@ -3711,8 +3815,8 @@ def phase_ivf(torch, isc, ss, dev, tmp: Path) -> tuple[dict, dict]:
             flat.search(q[:b], K)
         host_ms = (time.perf_counter() - t0) * 1e3 / IVF_REPS
         times.append(f"B={b} {ms:.3f} ms = {b / ms * 1e3:.0f} QPS (host {host_ms:.3f} ms)")
-    report(f"bf16 flat index, same {IVF_N} rows, for comparison (the direct path at these B, "
-           "ROADMAP Queue 2 #8b; CUDA events over search_device, host over search): "
+    report(f"bf16 flat index, same {IVF_N} rows, for comparison (the two-level path at these "
+           "B; CUDA events over search_device, host over search): "
            + "; ".join(times))
     del flat
     torch.cuda.empty_cache()
@@ -4333,6 +4437,7 @@ def main() -> int:
         phase_multipath(torch, sm, ss, dev, index, bm25, data)
         del index, bm25
         torch.cuda.empty_cache()
+        crossover = phase_crossover(torch, sm, ss, dev)
         l2_launches = phase_index_l2(torch, sm, ss, dev, data)
         phase_index_i8(torch, smi8, ss, dev, data)
         kernel_ivf, ivf_launches = phase_ivf(torch, isc, ss, dev, tmp)
@@ -4448,7 +4553,7 @@ def main() -> int:
                      "source": "rag_arc_tpu_torch/ops/rms_norm.py", "replaces": None,
                      "shape": f"T={t} H={h} ({what})", **counted,
                      **kernel_rms_norm[f"T{t}_H{h}"]})
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "crossover": crossover}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

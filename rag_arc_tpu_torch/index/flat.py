@@ -9,10 +9,26 @@
 - Deletes clear the mask bit and zero the row, so dead rows score 0
   under cosine/ip and snapshots stay interchangeable with the JAX
   package's.
-- Search: a score matrix within ``SCORE_BYTES_BUDGET`` takes the direct
-  product + top-k; a larger one takes the two-level path, whose sub-tile
-  max is the CUDA kernel on the card. The two-level producer is masked,
-  so it is exact without the TPU path's certificate.
+- Search (:func:`takes_two_level`): on a CUDA card a bf16 corpus takes
+  the two-level path, whose producer and select are the hand-written
+  kernels, unless it holds at most ``CARD_DIRECT_ROWS`` rows and the
+  (B, N) score matrix at most ``CARD_DIRECT_SCORES`` scores; an int8
+  corpus always takes it. The direct path widens the corpus to f32,
+  reads it again in a GEMV or GEMM and sorts every score, so its time
+  grows with N: at B = 1 over 2,682,880 rows 9.7 ms against 1.8 (the
+  producer reads the bf16 rows once). The two-level path issues ~25
+  launches, so under ~2^17 rows the host's issue time decides and the
+  direct path's few launches win at B <= 32 (the crossover, B 1-128 over
+  32,768 to 2.68M rows: PERF.md §6). On the CPU, and for an f32 corpus
+  anywhere, the JAX package's rule holds: a score matrix within
+  ``SCORE_BYTES_BUDGET`` takes the direct product + top-k, a larger one
+  the two-level path (the f32 producer runs on CUDA cores, slower than
+  the plain GEMM at the graph's shape). The two-level producer is
+  masked, so it is exact without the TPU path's certificate: its
+  positions equal the direct path's except among equal scores. It
+  normalizes a cosine query in f32 and rounds it to the corpus dtype
+  once, where the direct path rounds first and normalizes in bf16, so
+  the two paths' scores may differ by a few 1e-4.
 
 int8 mode (``dtype=torch.int8``, cosine/ip) stores symmetric int8 codes
 with ONE scale per ``QUANT_BLOCK`` aligned rows, so the int8 kernel's raw
@@ -169,12 +185,37 @@ def _i8_topk_direct(
     return s * qscale, p
 
 
+# direct-path budget for the (B, N) f32 score matrix where the rule is
+# the JAX package's (the CPU, f32 corpora); above it the search takes the
+# two-level path
+SCORE_BYTES_BUDGET = 1 << 30
+# the direct path's limits for a bf16 corpus on the card, from the
+# measured crossover (H100, time as the host issues the calls): past 2^17
+# rows, or past 2^22 scores, the two-level kernels are faster
+CARD_DIRECT_ROWS = 1 << 17
+CARD_DIRECT_SCORES = 1 << 22
+
+
+def takes_two_level(
+    device_type: str, dtype: torch.dtype, b: int, capacity: int,
+    budget: int = SCORE_BYTES_BUDGET,
+) -> bool:
+    """Whether a search of ``b`` queries over ``capacity`` stored rows
+    takes the two-level path. On a CUDA card: an int8 corpus always, a
+    bf16 one past ``CARD_DIRECT_ROWS`` rows or ``CARD_DIRECT_SCORES``
+    scores. Otherwise (the CPU, f32 corpora) when the (B, N) f32 score
+    matrix exceeds ``budget`` bytes."""
+    if device_type == "cuda" and dtype == torch.int8:
+        return True
+    if device_type == "cuda" and dtype == torch.bfloat16:
+        return capacity > CARD_DIRECT_ROWS or b * capacity > CARD_DIRECT_SCORES
+    return 4 * b * capacity > budget
+
+
 class DeviceFlatIndex:
     """Exact MIPS/L2/cosine index over device-resident vectors."""
 
-    # direct-path budget for the (B, N) f32 score matrix; above it the
-    # search takes the two-level path
-    SCORE_BYTES_BUDGET = 1 << 30
+    SCORE_BYTES_BUDGET = SCORE_BYTES_BUDGET
 
     # rows per pass-1 sub-tile max (the kernels' g); divides QUANT_BLOCK
     SUBTILE_G = 16
@@ -459,7 +500,8 @@ class DeviceFlatIndex:
         return fetch
 
     def _two_level(self, b: int) -> bool:
-        return self._force_two_level or 4 * b * self.capacity > self.SCORE_BYTES_BUDGET
+        return self._force_two_level or takes_two_level(
+            self.device.type, self.dtype, b, self.capacity, self.SCORE_BYTES_BUDGET)
 
     def search_device(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-to-device search: ``q`` is a (B, dim) tensor on the
@@ -468,7 +510,7 @@ class DeviceFlatIndex:
         position; the host boundary normalizes both. An ``index.search``
         span (the host's enqueue) counts the path, queries and rows."""
         b = q.shape[0]
-        two_level = self._two_level(b) or (self.quantized and self.device.type == "cuda")
+        two_level = self._two_level(b)
         with stage("index.search", path="two_level" if two_level else "direct", queries=b,
                    rows=self.n_active):
             if self.quantized:

@@ -4,7 +4,12 @@ path, the two-level path (the JAX index on its certified stream path in
 Pallas interpret mode, the port forced onto its two-level path), with
 duplicated rows (tie order) and with fewer live rows than k (the -inf/-1
 contract); l2 on the port's two-level path against the JAX index. Ids
-must be equal and scores within 1e-5 (f32 sums in another order)."""
+must be equal and scores within 1e-5 (f32 sums in another order). Then
+the rule that picks the path: the card's (bf16 two-level past 2^17 rows
+or 2^22 scores, int8 always, f32 by the budget) and the CPU's (the JAX
+package's budget)."""
+
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +17,8 @@ import pytest
 import torch
 
 from rag_arc_tpu.index.flat import DeviceFlatIndex as JaxFlat
-from rag_arc_tpu_torch.index.flat import DeviceFlatIndex as TorchFlat
+from rag_arc_tpu_torch.index.flat import DeviceFlatIndex as TorchFlat, takes_two_level
+from rag_arc_tpu_torch.utils import tracing
 
 ATOL = 1e-5
 
@@ -159,3 +165,81 @@ def test_l2_compact_then_grow_two_level():
     _apply(j, [("add", more)])
     _apply(t, [("add", more)])
     _check(j, t, q, 10)
+
+
+# -- the search path rule ----------------------------------------------------------
+
+NQ_ROWS = 2_682_880  # the NQ index's capacity: the direct path's budget at B = 100
+BF16, I8, F32 = torch.bfloat16, torch.int8, torch.float32
+
+
+@pytest.mark.parametrize("device, dtype, b, capacity, two_level", [
+    # a bf16 corpus on the card: the two-level kernels past 2^17 rows at
+    # any B, or past 2^22 scores; the direct path within both
+    ("cuda", BF16, 1, NQ_ROWS, True), ("cuda", BF16, 512, NQ_ROWS, True),
+    ("cuda", BF16, 1, (1 << 17) + 1024, True), ("cuda", BF16, 1, 1 << 17, False),
+    ("cuda", BF16, 32, 1 << 17, False), ("cuda", BF16, 33, 1 << 17, True),
+    ("cuda", BF16, 64, 65_536, False), ("cuda", BF16, 128, 65_536, True),
+    ("cuda", BF16, 1, 1024, False),
+    # an int8 corpus on the card: always the kernels
+    ("cuda", I8, 1, 1024, True), ("cuda", I8, 1, NQ_ROWS, True),
+    # f32 keeps the budget rule on the card
+    ("cuda", F32, 1, NQ_ROWS, False), ("cuda", F32, 100, NQ_ROWS, False),
+    ("cuda", F32, 101, NQ_ROWS, True),
+    # the CPU keeps the JAX package's rule for every dtype
+    ("cpu", BF16, 1, NQ_ROWS, False), ("cpu", BF16, 100, NQ_ROWS, False),
+    ("cpu", BF16, 101, NQ_ROWS, True), ("cpu", I8, 1, 4096, False),
+    ("cpu", F32, 4096, 65_536, False), ("cpu", F32, 4097, 65_536, True),
+])
+def test_search_path_rule(device, dtype, b, capacity, two_level):
+    assert takes_two_level(device, dtype, b, capacity) is two_level
+
+
+def _search_paths(index, q, k):
+    """The search's answer and the paths its ``index.search`` spans name."""
+    t0 = time.time_ns()
+    tracing.enable()
+    try:
+        out = index.search_device(q, k)
+    finally:
+        tracing.disable()
+    return out, [s.attrs["path"] for s in tracing.spans(t0) if s.name == "index.search"]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cpu_index_keeps_the_budget_rule(dtype):
+    """On the CPU a B = 1 search takes the direct path and one whose score
+    matrix exceeds the budget the two-level path, with the same ids (ip:
+    under cosine the two paths round and normalize the query in different
+    orders)."""
+    v, q = _corpus(9, 3000, dups=False)
+    _, t = _pair("direct", "direct", dtype=dtype, metric="ip")
+    t.add(v)
+    q = torch.from_numpy(q[:1])
+    (s1, p1), paths = _search_paths(t, q, 10)
+    assert paths == ["direct"]
+    t.SCORE_BYTES_BUDGET = 4 * t.capacity - 1  # B = 1's score matrix now exceeds it
+    (s2, p2), paths = _search_paths(t, q, 10)
+    assert paths == ["two_level"]
+    np.testing.assert_array_equal(p2.numpy(), p1.numpy())
+    np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype, two_level", [("bf16", True), ("f32", False)])
+def test_index_on_a_card_takes_the_rule_of_its_dtype(dtype, two_level):
+    """An index whose device is a CUDA card (its tensors left on the CPU,
+    so the kernel wrappers take their plain versions) chooses its path
+    by the card's rule: at a capacity past 2^17 rows bf16 takes the
+    two-level path at B = 1, far within the CPU's budget, and f32 the
+    direct path; the ids are the direct path's (ip, as above)."""
+    v, q = _corpus(10, 3000, dups=False)
+    _, t = _pair("direct", "direct", dtype=dtype, metric="ip", capacity=1 << 18)
+    t.add(v)
+    q = torch.from_numpy(q[:1])
+    (s1, p1), paths = _search_paths(t, q, 10)
+    assert paths == ["direct"]
+    t.device = torch.device("cuda")
+    (s2, p2), paths = _search_paths(t, q, 10)
+    assert paths == ["two_level" if two_level else "direct"]
+    np.testing.assert_array_equal(p2.numpy(), p1.numpy())
+    np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=0, atol=ATOL)

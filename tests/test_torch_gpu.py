@@ -7,7 +7,10 @@ padded d, ragged lengths and query blocks, g up to 256, dead sub-tiles,
 KV heads shared by 1-8 query heads, ``out=`` views, the launch counts,
 the wrappers' refusals, and small Qwen3 forwards through both attention
 kernels (one launch each a layer, no plain version), the reranker's
-packed rows against each pair scored alone; an HTTP ``/batch``
+packed rows against each pair scored alone; a bf16 flat index searched
+at B 1-32 on the two-level kernels past 2^17 rows and on the direct
+path under them (positions equal to the direct path's but among equal
+scores); an HTTP ``/batch``
 served at B=300 over a two-level-sized store (the producer and the
 select launch once each) and a blob-backed store's snapshot round trip
 on the card. They skip where no
@@ -409,6 +412,108 @@ def test_two_level_launches_select_once(cuda, k):
     s2, p2 = masked_topk(q.float(), x, valid, k)
     torch.testing.assert_close(p1, p2, atol=0, rtol=0)
     torch.testing.assert_close(s1, s2, atol=1e-5, rtol=0)
+
+
+def _equal_but_ties(s, p, ws, wp, tie=1e-6):
+    """(s, p) against the reference (ws, wp), host (B, k) arrays after
+    ``normalize_raw``: ranked scores within 1e-5 and the same empty
+    slots; a position differs only at a rank whose reference score lies
+    within ``tie`` of a neighbour's (f32 sums of exact bf16 products in
+    another order), and each row holds the same ids but those whose
+    scores lie within ``tie`` of the k-th."""
+    np.testing.assert_allclose(s, ws, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(p < 0, wp < 0)
+    for r in range(len(wp)):
+        for j in np.nonzero(p[r] != wp[r])[0]:
+            near = np.abs(ws[r, max(j - 1, 0) : j + 2] - ws[r, j]) <= tie
+            assert near.sum() >= 2, (r, j, p[r, j], wp[r, j])
+        live = ws[r][np.isfinite(ws[r])]
+        kth = live.min() if live.size else -np.inf
+        for x in set(p[r][p[r] >= 0].tolist()) ^ set(wp[r][wp[r] >= 0].tolist()):
+            score = s[r][p[r] == x] if x in p[r] else ws[r][wp[r] == x]
+            assert abs(float(score[0]) - kth) <= tie, (r, x)
+
+
+def _traced_search(index, q, k):
+    """``index.search_device(q, k)`` and the attrs of its one
+    ``index.search`` span."""
+    import time
+
+    from rag_arc_tpu_torch.utils import tracing
+
+    t0 = time.time_ns()
+    tracing.enable()
+    try:
+        got = index.search_device(q, k)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    (span,) = [x for x in tracing.spans(t0) if x.name == "index.search"]
+    return got, span.attrs
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 32])
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("n,dead", [(200_000, 6_000), (80, 20)])
+def test_bf16_index_serves_every_batch_on_the_kernels(cuda, b, k, n, dead):
+    """A bf16 ``DeviceFlatIndex`` on the card past the direct path's
+    2^17 rows (capacity 2^18) takes the two-level path at every batch
+    size, its score matrix far within the CPU's budget: one producer and
+    one select launch a search, the span says ``two_level``, and after
+    ``normalize_raw`` the positions equal the direct path's
+    (``masked_topk``) but among equal scores, with tombstoned rows,
+    capacity above the live rows, and (80 rows, 20 dead) fewer live rows
+    than k. The direct path is given the query as the two-level path
+    prepares it (normalized in f32, rounded to bf16 once), under ip over
+    the unit rows: the index's own direct path rounds first and
+    normalizes in bf16, which moves scores by ~1e-3."""
+    from rag_arc_tpu_torch.index.flat import fetch_pair, normalize_raw
+    from rag_arc_tpu_torch.ops.two_level import prepare_queries
+
+    rng = np.random.default_rng(b * 1000 + k + n)
+    d = 64
+    index = DeviceFlatIndex(dim=d, capacity=1 << 18, dtype=torch.bfloat16, device=cuda)
+    index.add(rng.standard_normal((n, d)).astype(np.float32))
+    index.mark_deleted(rng.choice(n, dead, replace=False))
+    assert index.capacity == 1 << 18 > index.n_active
+    assert 4 * b * index.capacity <= index.SCORE_BYTES_BUDGET
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(cuda)
+    before = (sm.launches, ss.launches)
+    got, attrs = _traced_search(index, q, k)
+    assert (sm.launches, ss.launches) == (before[0] + 1, before[1] + 1)
+    assert attrs == {"path": "two_level", "queries": b, "rows": n - dead}
+    s, p = normalize_raw(*fetch_pair(*got), b, k, k)
+    qc = prepare_queries(q, torch.bfloat16, "cosine")
+    want = masked_topk(qc.float(), index.emb, index.valid, k, "ip")
+    ws, wp = normalize_raw(*fetch_pair(*want), b, k, k)
+    _equal_but_ties(s, p, ws, wp)
+    if n - dead < k:
+        assert (p[:, n - dead:] == -1).all() and (p[:, : n - dead] >= 0).all()
+
+
+@pytest.mark.parametrize("capacity,b,two_level", [(1 << 17, 1, False), (1 << 17, 32, False),
+                                                  (1 << 16, 64, False), (1 << 17, 64, True)])
+def test_bf16_index_keeps_the_direct_path_on_small_corpora(cuda, capacity, b, two_level):
+    """At most 2^17 rows and 2^22 scores a bf16 index on the card takes
+    the direct path (no kernel launch); past 2^22 scores the two-level
+    one, with the direct path's positions but among equal scores (ip over
+    unit rows and queries: both paths then score the same query)."""
+    from rag_arc_tpu_torch.index.flat import fetch_pair, normalize_raw
+
+    rng = np.random.default_rng(capacity + b)
+    d, k = 64, 10
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)  # noqa: E731
+    index = DeviceFlatIndex(dim=d, metric="ip", capacity=capacity, dtype=torch.bfloat16,
+                            device=cuda)
+    index.add(unit(rng.standard_normal((capacity - 1000, d)).astype(np.float32)))
+    q = torch.from_numpy(unit(rng.standard_normal((b, d)).astype(np.float32))).to(cuda)
+    before = sm.launches
+    got, attrs = _traced_search(index, q, k)
+    assert sm.launches == before + two_level
+    assert attrs["path"] == ("two_level" if two_level else "direct")
+    want = masked_topk(q, index.emb, index.valid, k, "ip")
+    _equal_but_ties(*normalize_raw(*fetch_pair(*got), b, k, k),
+                    *normalize_raw(*fetch_pair(*want), b, k, k))
 
 
 # -- rope_prep --------------------------------------------------------------------
