@@ -6,7 +6,7 @@
 Phases, each printing its own lines and times:
 
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the nine CUDA sources of ``rag_arc_tpu_torch/csrc`` for
+  2. build: compile the ten CUDA sources of ``rag_arc_tpu_torch/csrc`` for
      sm_90a, one ``nvcc`` each, in parallel (nvcc's register / shared-memory
      report is printed);
   3. kernels against their plain PyTorch versions on the card (N = 262,144,
@@ -230,7 +230,18 @@ Phases, each printing its own lines and times:
      behind the app on the packed path: every forward packed, and
      ``short_conv`` 18, the SwiGLU pass 22, ``rope_prep`` and
      ``flash_attention`` 6 and ``add_rms_norm`` 49 launches a forward,
-     counted from 0 before each request.
+     counted from 0 before each request;
+ 10. granite: granite-4.0-h-small at its published widths with experts
+     0-35 of 72 held (40 layers: 36 Mamba-2, 4 NoPE attention 32/8 of 128;
+     every layer's sparse block top 10 beside a shared expert), bf16,
+     seeded weights. At the same 28 packed rows ``mamba_conv``,
+     ``ssd_scan``, ``gated_rms_norm`` and the held experts' FFN are held
+     against their plain versions and timed in turns beside their bounds,
+     and the scan and a bf16-state control against the f32 token
+     recurrence; then 4 single queries served as in lfm2: every forward
+     packed, and ``mamba_conv``, ``ssd_scan`` and ``gated_rms_norm`` 36,
+     ``add_rms_norm`` 81, the SwiGLU pass 40 and ``flash_attention`` 4
+     launches a forward.
 
 With ``--parent DIR`` (a tree of an earlier commit, e.g. unpacked by
 ``git archive``), the select and ivf phases also time that tree's
@@ -423,6 +434,12 @@ LFM2_RECALL = 100
 LFM2_REQUESTS = 4
 # the add + RMSNorm kernel at each served reranker's shape: one query's 100
 # NQ pairs packed into 30 (Qwen3) and 28 (LFM2) rows of 512 tokens
+# granite-4.0-h-small, experts 0-35 of 72 held (the cell's share): its
+# kernels at the LFM2 phase's packed rows, then served as the LFM2 model is
+GRANITE_HELD = (0, 36)
+# the scan's state readout against the f32 token recurrence, the worst
+# head's relative L2 error (tests/test_torch_granite_hybrid.py's limit)
+SSD_STATE_TOL = 0.0035
 RMS_NORM_SHAPES = ((30 * 512, 1024, "Qwen3-Reranker-0.6B, 30 rows of 512"),
                    (28 * 512, 2048, "LFM2-8B-A1B, 28 rows of 512"))
 SERVE_RERANK_QPR = 8
@@ -1419,7 +1436,7 @@ def uncounted(*modules):
     """Launches inside do not count: a serving phase's timing and reference
     calls, made while no request is being served. Each module's counts are
     put back as they were on the way out."""
-    names = ("launches", "launches_l2", "launches_plan")
+    names = ("launches", "launches_l2", "launches_plan", "launches_gated")
     saved = [(m, n, getattr(m, n)) for m in modules for n in names if hasattr(m, n)]
     try:
         yield
@@ -3447,6 +3464,237 @@ def phase_lfm2(torch, sc, moe, rp, fa, dev) -> dict:
     return out
 
 
+def ssd_state_errors(torch, scan, ref_granite, args, kw) -> dict:
+    """The scan's state readout (D = 0) against the f32 token recurrence
+    (``bench_torch/reference/granite_hybrid.py::ssd_packed``), the worst
+    head's relative L2 error over the live tokens, beside the same
+    recurrence with its state held in bf16 (a control that must fail)."""
+    xbc, step, a_log, dt_bias, _, seg = args
+    heads, p_, n_ = kw["heads"], kw["head_dim"], kw["d_state"]
+    d0 = torch.zeros(heads, device=xbc.device)
+    live = seg >= 0
+
+    def worst(got, want):
+        e = (got.float() - want)[live].reshape(-1, heads, p_)
+        w = want[live].reshape(e.shape)
+        return float((e.norm(dim=(0, 2)) / w.norm(dim=(0, 2))).max())
+
+    got = scan.ssd_scan(xbc, step, a_log, dt_bias, d0, seg, **kw)
+    want = ref_granite.ssd_packed(xbc, step, a_log, dt_bias, d0, seg, heads, p_, n_)
+    held16 = ref_granite.ssd_packed(xbc, step, a_log, dt_bias, d0, seg, heads, p_, n_,
+                                    torch.bfloat16)
+    err, control = worst(got, want), worst(held16.to(torch.bfloat16), want)
+    report(f"ssd_scan's state readout (D = 0) against the f32 token recurrence, the worst "
+           f"head's relative L2 error: kernel {err:.5f}, a bf16 state {control:.5f} (limit "
+           f"{SSD_STATE_TOL})")
+    check(err < SSD_STATE_TOL, "ssd_scan strays from the f32 recurrence")
+    check(control > SSD_STATE_TOL, "a bf16 state passes the scan's limit: it cannot tell")
+    return {"state_err": err, "bf16_state_err": control}
+
+
+def granite_kernels(torch, sc, scan, rn, moe, dev) -> dict:
+    """The Mamba conv, the scan, the gated norm and the held experts' FFN
+    against their plain versions at granite-4.0-h-small's widths on one
+    served chunk of packed rows (the conv, scan and norm reading their
+    columns of one (rows, 512, 16,768) projection, as the model passes
+    them), then timed in turns beside their bounds."""
+    from bench_torch.reference import granite_hybrid as ref_granite
+    from rag_arc_tpu_torch.models.granite_hybrid import GraniteHybridConfig
+
+    cfg = GraniteHybridConfig()
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    h, inner, conv, heads = cfg.hidden_size, cfg.mamba_inner, cfg.conv_dim, cfg.mamba_n_heads
+    p_, n_ = cfg.mamba_d_head, cfg.mamba_d_state
+    seg = torch.from_numpy(lfm2_segments(rng, LFM2_ROWS, LFM2_ROW_LEN)).to(dev)
+    live = int((seg >= 0).sum())
+    out = {}
+
+    proj = torch.randn(LFM2_ROWS, LFM2_ROW_LEN, cfg.in_proj_dim, generator=gen,
+                       device=dev).bfloat16()
+    z, v, step = proj[..., :inner], proj[..., inner:inner + conv], proj[..., inner + conv:]
+    w = (torch.randn(conv, cfg.mamba_d_conv, generator=gen, device=dev) / 2).bfloat16()
+    b = (0.02 * torch.randn(conv, generator=gen, device=dev)).bfloat16()
+    got, want = sc.mamba_conv(v, w, b, seg), sc.mamba_conv_plain(v, w, b, seg)
+    d = float((got.float() - want.float()).abs().max())
+    report(f"mamba_conv, {LFM2_ROWS} rows x {LFM2_ROW_LEN} ({live} live tokens), C={conv}: "
+           f"max|kernel - plain| {d:.3e} (one bf16 step of |y| <= "
+           f"{float(want.float().abs().max()):.2f} allowed)")
+    check(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+          "mamba_conv strays from its plain version")
+    check(bool((got[seg < 0] == 0).all()), "mamba_conv wrote non-zero padding")
+    nbytes = live * 2 * conv * 2
+    t = in_turns(lambda: sc.mamba_conv(v, w, b, seg), lambda: sc.mamba_conv_plain(v, w, b, seg),
+                 "mamba_conv", live * 2 * 4 * conv, "TFLOP/s", nbytes,
+                 "of xBC read and written")
+    out["mamba_conv"] = {**t, **bound(live * 2 * 4 * conv, H100_BF16_PEAK, nbytes)}
+
+    xbc = got
+    a_log = torch.log(1 + 15 * torch.rand(heads, generator=gen, device=dev))
+    u = torch.rand(heads, generator=gen, device=dev)
+    dt0 = torch.exp(np.log(0.001) + (np.log(0.1) - np.log(0.001)) * u)
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    d_skip = torch.ones(heads, device=dev)
+    args = (xbc, step, a_log, dt_bias, d_skip, seg)
+    kw = dict(heads=heads, head_dim=p_, d_state=n_)
+    got, want = scan.ssd_scan(*args, **kw), scan.ssd_scan_plain(*args, **kw)
+    scale = float(want.float().abs().max())
+    d = float((got.float() - want.float()).abs().max())
+    report(f"ssd_scan, {heads} heads x {p_}, state {n_}, chunks of {scan.CHUNK}: "
+           f"max|kernel - plain| {d:.3e} against |y| <= {scale:.3f} (bound 1e-2 of it: bf16 "
+           f"product operands, one bf16 rounding)")
+    check(d <= 1e-2 * scale, "ssd_scan strays from its plain version")
+    check(bool((got[seg < 0] == 0).all()), "ssd_scan wrote non-zero padding")
+    state_err = ssd_state_errors(torch, scan, ref_granite, args, kw)
+    ops = live * 5.0 * heads * p_ * n_
+    nbytes = live * (2 * inner + 2 * n_ + heads) * 2
+    t = in_turns(lambda: scan.ssd_scan(*args, **kw), lambda: scan.ssd_scan_plain(*args, **kw),
+                 "ssd_scan", ops, "TFLOP/s", nbytes, "of x, B, C, dt read and y written")
+    out["ssd_scan"] = {**t, **bound(ops, H100_BF16_PEAK, nbytes), **state_err}
+
+    y = got
+    nw = (1 + 0.02 * torch.randn(inner, generator=gen, device=dev)).bfloat16()
+    got, want = rn.gated_rms_norm(y, z, nw, 1e-5), rn.gated_rms_norm_plain(y, z, nw, 1e-5)
+    d = float((got.float() - want.float()).abs().max())
+    report(f"gated_rms_norm, {LFM2_ROWS * LFM2_ROW_LEN} rows x {inner}: max|kernel - plain| "
+           f"{d:.3e} (one bf16 step)")
+    check(torch.allclose(got.float(), want.float(), rtol=8e-3, atol=1e-6),
+          "gated_rms_norm strays from its plain version")
+    rows_all = LFM2_ROWS * LFM2_ROW_LEN
+    nbytes = rows_all * 3 * inner * 2
+    t = in_turns(lambda: rn.gated_rms_norm(y, z, nw, 1e-5),
+                 lambda: rn.gated_rms_norm_plain(y, z, nw, 1e-5), "gated_rms_norm",
+                 rows_all * 8 * inner, "TFLOP/s", nbytes, "of y, z read and written")
+    out["gated_rms_norm"] = {**t, **bound(rows_all * 8 * inner, H100_BF16_PEAK, nbytes)}
+    del proj, z, v, step, xbc, y, got, want
+
+    lo, hi = GRANITE_HELD
+    n_exp, inter, top_k = cfg.num_local_experts, cfg.intermediate_size, cfg.num_experts_per_tok
+    x = torch.randn(rows_all, h, generator=gen, device=dev).bfloat16()
+    router = (0.02 * torch.randn(n_exp, h, generator=gen, device=dev)).bfloat16()
+    gateup = (0.02 * torch.randn(hi - lo, 2 * inter, h, generator=gen, device=dev)).bfloat16()
+    down = (0.02 * torch.randn(hi - lo, h, inter, generator=gen, device=dev)).bfloat16()
+    r = moe.moe_route(x, router, None, top_k, scoring="softmax", held=GRANITE_HELD,
+                      live=(seg >= 0).reshape(-1))
+    held_rows = int(r.offsets[-1])
+    check(0 < held_rows < live * top_k, "moe_route held every assignment or none")
+    got = moe.moe_experts(x, r, gateup, down)
+    want = moe.moe_experts_plain(x, r, gateup, down)
+    scale = float(want.float().abs().max())
+    d = float((got.float() - want.float()).abs().max())
+    report(f"held experts (gather, torch._grouped_mm, swiglu, torch._grouped_mm, combine), "
+           f"{live} tokens x top {top_k} of {n_exp}, experts {lo}-{hi - 1} held ({held_rows} "
+           f"assignments), H={h} I={inter}: max|card - plain loop| {d:.3e} against |y| <= "
+           f"{scale:.3f} (bound 2e-2 of it: a few bf16 steps)")
+    check(d <= 2e-2 * scale, "the held experts' FFN strays from the plain expert loop")
+    check(bool((got[seg.reshape(-1) < 0] == 0).all()), "moe_experts wrote non-zero padding")
+    ops = 6.0 * h * inter * held_rows
+    nbytes = 3 * (hi - lo) * h * inter * 2 + 2 * live * h * 2
+    t = in_turns(lambda: moe.moe_experts(x, r, gateup, down),
+                 lambda: moe.moe_experts_plain(x, r, gateup, down), "held experts", ops,
+                 "TFLOP/s", nbytes, "of held expert weights, x and y")
+    out["moe_experts_held"] = {**t, **bound(ops, H100_BF16_PEAK, nbytes)}
+    for name, row in out.items():
+        report(f"{name}: {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+               f"({row['bound_by']}; share {row['bound_ms'] / row['ms']:.2f})")
+    del x, router, gateup, down, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_granite(torch, sc, scan, rn, moe, fa, dev) -> dict:
+    """granite-4.0-h-small at its published widths with experts 0-35 held
+    (seeded bf16 weights) as the served cross-encoder: the new kernels held
+    against their plain versions at the served shapes, then requests
+    through ``RagPipeline`` and the app on the packed path with every new
+    kernel's launches counted a forward. Returns the kernel rows' numbers."""
+    from rag_arc_tpu_torch.index.vector_store import TorchVectorStore
+    from rag_arc_tpu_torch.models.encoder import TransformerConfig
+    from rag_arc_tpu_torch.models.granite_hybrid import GraniteHybridConfig, init_granite_hybrid
+    from rag_arc_tpu_torch.models.tokenizer import HashTokenizer
+    from rag_arc_tpu_torch.models.torch_embeddings import TorchEncoderEmbeddings
+    from rag_arc_tpu_torch.rerank.cross_encoder import CrossEncoderReranker
+    from rag_arc_tpu_torch.serving.pipeline import RagPipeline
+
+    cfg = GraniteHybridConfig(held_experts=GRANITE_HELD, dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    n_mamba = cfg.layer_types.count("mamba")
+    n_attn = cfg.num_hidden_layers - n_mamba
+    phase(f"granite: granite-4.0-h-small ({cfg.num_hidden_layers} layers: {n_mamba} Mamba-2, "
+          f"{n_attn} NoPE attention {cfg.num_attention_heads}/{cfg.num_key_value_heads}x"
+          f"{cfg.head_dim}; {cfg.num_local_experts} experts top {cfg.num_experts_per_tok}, "
+          f"{GRANITE_HELD[0]}-{GRANITE_HELD[1] - 1} held, a shared expert), bf16; kernels at "
+          f"{LFM2_ROWS} packed rows of {LFM2_ROW_LEN}, then served over {LFM2_DOCS} passages, "
+          f"recall {LFM2_RECALL}")
+    out = granite_kernels(torch, sc, scan, rn, moe, dev)
+
+    rng = np.random.default_rng(SEED + 22)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, n)) for n in rng.integers(3, 11, DOC_VOCAB)]
+    lens = np.minimum(rng.lognormal(np.log(LFM2_PASSAGE_WORDS), 0.5, LFM2_DOCS).astype(int) + 8,
+                      200)
+    texts = [" ".join(rng.choice(words, n)) for n in lens]
+    emb = TorchEncoderEmbeddings(TransformerConfig(), seed=SEED, device=dev)
+    store = TorchVectorStore.from_texts(texts, emb, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    model = init_granite_hybrid(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    report(f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f}B parameters made on the "
+           f"card in {time.perf_counter() - t0:.1f} s")
+    rr = CrossEncoderReranker.from_causal_lm(
+        model, None, HashTokenizer(vocab_size=cfg.vocab_size, max_len=LFM2_ROW_LEN), device=dev)
+    retriever = store.as_retriever(search_kwargs={"k": K})
+    pipe = RagPipeline(retriever, reranker=rr, recall_k=LFM2_RECALL, top_k=K,
+                       batch_max=SERVE_BATCH_MAX, batch_wait_ms=SERVE_WAIT_MS)
+    pipe.warmup(batch_sizes=(1,))
+    counters = [Counter(m) for m in (sc, scan, rn, moe, fa)] + [Counter(rn, "launches_gated")]
+    # mamba_conv, ssd_scan, add_rms_norm (2·L + 1), the SwiGLU pass (one a
+    # layer), flash_attention, gated_rms_norm
+    want_each = (n_mamba, n_mamba, 2 * cfg.num_hidden_layers + 1, cfg.num_hidden_layers,
+                 n_attn, n_mamba)
+    times = []
+    with served(pipe) as port, Calls(model, "_trunk") as calls, \
+            Calls(model, "last_logits_packed") as packed:
+        http = _Http(port)
+        for i in range(LFM2_REQUESTS):
+            query = " ".join(rng.choice(words, 9))
+            for c in counters:
+                c.reset()
+            before = calls.n
+            t0 = time.perf_counter()
+            got = http.post("/batch", {"queries": [query], "k": K})["results"][0]
+            times.append((time.perf_counter() - t0) * 1e3)
+            n_fwd = calls.n - before
+            launches = tuple(c.read() for c in counters)
+            check(n_fwd > 0 and launches == tuple(n * n_fwd for n in want_each),
+                  f"request {i}: mamba_conv / ssd_scan / add_rms_norm / moe swiglu / "
+                  f"flash_attention / gated_rms_norm launched {launches} times for {n_fwd} forwards, not {want_each} each a "
+                  f"forward")
+            per_fwd = tuple(n // n_fwd for n in launches)
+            with uncounted(sc, scan, rn, moe, fa):
+                cands = retriever.invoke_batch([query], k=LFM2_RECALL)[0]
+            scores = [d["metadata"]["rerank_score"] for d in got]
+            check(len(got) == K and scores == sorted(scores, reverse=True)
+                  and all(0.0 <= s <= 1.0 for s in scores), "a short or unsorted answer")
+            check({d["id"] for d in got} <= {d.id for d in cands},
+                  f"an answer is not among the retrieved {LFM2_RECALL}")
+        http.close()
+    check(packed.n == calls.n, f"{calls.n - packed.n} forwards left the packed path")
+    report(f"{LFM2_REQUESTS} single-query requests x {LFM2_RECALL} candidates: "
+           + ", ".join(f"{t:.1f}" for t in times) + f" ms each (host clock; "
+           f"{np.mean(times[1:]):.1f} ms mean past the first), every forward packed; "
+           f"launches a forward: mamba_conv {per_fwd[0]}, ssd_scan {per_fwd[1]}, add_rms_norm "
+           f"{per_fwd[2]}, moe swiglu {per_fwd[3]}, flash_attention {per_fwd[4]}, "
+           f"gated_rms_norm {per_fwd[5]}")
+    out["mamba_conv"]["launches"] = per_fwd[0]
+    out["ssd_scan"]["launches"] = per_fwd[1]
+    out["gated_rms_norm"]["launches"] = per_fwd[5]
+    out["moe_experts_held"]["launches"] = per_fwd[3]
+    del pipe, rr, model, store, emb
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve_config(torch, dev, tmp: Path, texts: list[str]) -> None:
     """A PipelineConfig document shaped like examples/serve_pipeline.json
     (TORCH_EMBEDDINGS at full width, a REWRITE with FAKE_LLM) through the
@@ -4408,6 +4656,7 @@ def main() -> int:
     from rag_arc_tpu_torch.ops import moe
     from rag_arc_tpu_torch.ops import rms_norm as rn
     from rag_arc_tpu_torch.ops import short_conv as sc
+    from rag_arc_tpu_torch.ops import ssd_scan as scan
 
     dev = torch.device("cuda", 0)
     counters = {"subtile_max": Counter(sm), "subtile_max_l2": Counter(sm, "launches_l2"),
@@ -4420,7 +4669,7 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         phase_environment(torch)
-        phase_build([sm, smi8, ss, rp, fa, smp, fm, cst, isc])
+        phase_build([sm, smi8, ss, rp, fa, smp, fm, cst, isc, scan])
         kernel, kernel_l2 = phase_kernel(torch, sm, dev)
         kernel_i8 = phase_kernel_i8(torch, smi8, dev)
         kernel_select = phase_select(torch, sm, ss, dev)
@@ -4482,6 +4731,7 @@ def main() -> int:
         del serve_store, qwen3, emb
         torch.cuda.empty_cache()
         lfm2 = phase_lfm2(torch, sc, moe, rp, fa, dev)
+        granite = phase_granite(torch, sc, scan, rn, moe, fa, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -4542,6 +4792,20 @@ def main() -> int:
          "replaces": None, **lfm2["moe_swiglu"]},
         {"name": "moe_experts", "route": "torch._grouped_mm x2 + moe_swiglu",
          "source": "rag_arc_tpu_torch/ops/moe.py", "replaces": None, **lfm2["moe_experts"]},
+    ]
+    # the Granite 4.0-H reranker's: no TPU counterpart; launches a served forward
+    rows += [
+        {"name": "mamba_conv", "route": "triton", "source": "rag_arc_tpu_torch/ops/short_conv.py",
+         "replaces": None, **granite["mamba_conv"]},
+        {"name": "ssd_scan", "route": "cuda", "source": src + "ssd_scan.cu",
+         "replaces": None, **granite["ssd_scan"]},
+        {"name": "gated_rms_norm", "route": "triton",
+         "source": "rag_arc_tpu_torch/ops/rms_norm.py", "replaces": None,
+         **granite["gated_rms_norm"]},
+        {"name": "moe_experts (36 of 72 held)",
+         "route": "torch._grouped_mm x2 + moe_swiglu",
+         "source": "rag_arc_tpu_torch/ops/moe.py", "replaces": None,
+         **granite["moe_experts_held"]},
     ]
     # XLA fused this chain on the TPU: no Pallas kernel. One row a served
     # reranker's shape, with the launches a forward that the rerank,

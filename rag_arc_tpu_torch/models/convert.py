@@ -11,6 +11,9 @@
 - ``lfm2_moe_state_dict_from_hf``: an HF LFM2 / LFM2-MoE causal LM
   state_dict (``Lfm2ForCausalLM``, ``lfm2_moe``) → the port's
   ``Lfm2MoeLM``;
+- ``granite_hybrid_state_dict_from_hf``: an HF Granite 4.0-H causal LM
+  state_dict (``GraniteMoeHybridForCausalLM``, ``granitemoehybrid``) → the
+  port's ``GraniteHybridLM``, its experts cut to the held range;
 - ``bert_state_dict_from_flax``: the ``FlaxBertModel`` tree
   (``rag_arc_tpu/models/bert.py``) → the port's ``BertModel``, whose
   names are HF's (an HF state_dict loads into it as it is).
@@ -226,4 +229,52 @@ def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
     for i in range(depth):
         for flax_name, hf_name in names.items():
             out.update(_layer(f"encoder.layer.{i}.{hf_name}", params[f"layer_{i}"][flax_name]))
+    return out
+
+
+def granite_hybrid_state_dict_from_hf(state_dict: Mapping[str, Any],
+                                      cfg) -> Dict[str, torch.Tensor]:
+    """An HF Granite 4.0-H causal LM state_dict → the port's
+    ``GraniteHybridLM`` state_dict (f32). ``cfg`` is the port's
+    ``GraniteHybridConfig``: q|k|v are concatenated into ``qkv_proj``, the
+    router's ``router.layer`` becomes ``router``, the experts'
+    ``input_linear`` (E, 2I, H) and ``output_linear`` (E, H, I) become
+    ``gateup_proj`` and ``down_proj`` cut to ``cfg.held``, the shared
+    expert's ``input_linear`` / ``output_linear`` its ``gateup_proj`` /
+    ``down_proj``, the conv's (C, 1, K) weight is taken as (C, K). With
+    ``tie_word_embeddings`` the HF ``lm_head`` (the embedding table) is not
+    carried."""
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+
+    def t(key: str) -> torch.Tensor:
+        v = sd[key]
+        return (v.detach() if hasattr(v, "detach") else torch.as_tensor(v)).float().cpu()
+
+    lo, hi = cfg.held
+    out = {"embed_tokens.weight": t("embed_tokens.weight"), "norm.weight": t("norm.weight")}
+    if not cfg.tie_word_embeddings:
+        out["lm_head.weight"] = t("lm_head.weight")
+    for i, kind in enumerate(cfg.layer_types):
+        p = f"layers.{i}."
+        for name in ("input_layernorm.weight", "post_attention_layernorm.weight"):
+            out[p + name] = t(p + name)
+        if kind == "attention":
+            a = p + "self_attn."
+            out[a + "qkv_proj.weight"] = torch.cat(
+                [t(a + f"{x}_proj.weight") for x in "qkv"], dim=0)
+            out[a + "o_proj.weight"] = t(a + "o_proj.weight")
+        else:
+            m = p + "mamba."
+            names = ["in_proj.weight", "dt_bias", "A_log", "D", "norm.weight", "out_proj.weight"]
+            if cfg.mamba_conv_bias:
+                names.append("conv1d.bias")
+            for name in names:
+                out[m + name] = t(m + name)
+            out[m + "conv1d.weight"] = t(m + "conv1d.weight").reshape(cfg.conv_dim, -1)
+        f = p + "block_sparse_moe."
+        out[f + "router.weight"] = t(f + "router.layer.weight")
+        out[f + "gateup_proj"] = t(f + "input_linear.weight")[lo:hi].contiguous()
+        out[f + "down_proj"] = t(f + "output_linear.weight")[lo:hi].contiguous()
+        out[p + "shared_mlp.gateup_proj.weight"] = t(p + "shared_mlp.input_linear.weight")
+        out[p + "shared_mlp.down_proj.weight"] = t(p + "shared_mlp.output_linear.weight")
     return out

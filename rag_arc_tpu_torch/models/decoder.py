@@ -1,10 +1,12 @@
 """The shell the port's pre-norm decoders share (``models/qwen3.py``,
-``models/lfm2_moe.py``): nothing attention-specific.
+``models/lfm2_moe.py``, ``models/granite_hybrid.py``): nothing
+attention-specific.
 
 - ``RMSNorm``: ``w · x̂`` in f32, rounded to the compute dtype.
-- ``residual_norm``: the residual add and the RMSNorm after it, one
+- ``residual_norm``: the residual add (scaled by the model's residual
+  multiplier, 1 but in Granite) and the RMSNorm after it, one
   ``ops/rms_norm.py`` launch on the kernel path, the plain chain on the
-  einsum path. Every norm site of both decoders calls it, so wrapping this
+  einsum path. Every norm site of the decoders calls it, so wrapping this
   module's ``add_rms_norm`` reaches all of them.
 - ``cast_linear``: a bias-free projection with input and weight cast to
   the compute dtype (parameters live in ``param_dtype``).
@@ -15,7 +17,10 @@
   ``forward``. A subclass builds its layers and supplies its context
   builders; a layer's ``forward(x, delta, ctx)`` returns the stream with
   its mixer added and its feed-forward output still to be added, so each
-  residual add runs inside the next norm.
+  residual add runs inside the next norm. A subclass may set
+  ``embedding_multiplier`` (the embeddings scaled on entry),
+  ``residual_multiplier`` (each residual add's delta scaled) and
+  ``logits_scaling`` (the logits divided by it), all 1 here.
 """
 
 from __future__ import annotations
@@ -42,11 +47,11 @@ class RMSNorm(nn.Module):
 
 
 def residual_norm(x: torch.Tensor, delta: Optional[torch.Tensor], norm: RMSNorm,
-                  fused: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(x + delta, norm(x + delta))``: one ``add_rms_norm`` launch on the
-    kernel path, the plain chain on the einsum path."""
+                  fused: bool, scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x + scale · delta, norm(x + scale · delta))``: one ``add_rms_norm``
+    launch on the kernel path, the plain chain on the einsum path."""
     op = add_rms_norm if fused else add_rms_norm_plain
-    return op(x, delta, norm.weight, norm.eps)
+    return op(x, delta, norm.weight, norm.eps, scale)
 
 
 def cast_linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -75,6 +80,10 @@ class DecoderLM(nn.Module):
     has ``fused`` (the kernels or plain torch). Keywords of the entry points
     (``counts`` for ``Lfm2MoeLM``) go to the context builders."""
 
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    logits_scaling = 1.0
+
     def __init__(self, cfg, layers: Iterable[nn.Module], norm_name: str, eps: float,
                  device=None):
         super().__init__()
@@ -94,6 +103,8 @@ class DecoderLM(nn.Module):
         feed-forward output still to be added to it (None without layers):
         the final norm adds it."""
         x = self.embed_tokens(ids.long()).to(self.cfg.dtype)
+        if self.embedding_multiplier != 1.0:
+            x = x * self.embedding_multiplier
         delta = None
         for layer in self.layers:
             x, delta = layer(x, delta, ctx)
@@ -101,7 +112,8 @@ class DecoderLM(nn.Module):
 
     def _final_norm(self, x: torch.Tensor, delta: Optional[torch.Tensor],
                     ctx) -> torch.Tensor:
-        return residual_norm(x, delta, getattr(self, self.norm_name), ctx.fused)[1]
+        return residual_norm(x, delta, getattr(self, self.norm_name), ctx.fused,
+                             self.residual_multiplier)[1]
 
     def hidden(self, ids: torch.Tensor, mask: torch.Tensor, **kw) -> torch.Tensor:
         """Final-norm hidden states (B, L, hidden) in the compute dtype."""
@@ -112,8 +124,10 @@ class DecoderLM(nn.Module):
         if self.cfg.tie_word_embeddings:
             # Flax Embed.attend: query and table in the compute dtype
             dt = self.cfg.dtype
-            return F.linear(x.float().to(dt), self.embed_tokens.weight.to(dt))
-        return F.linear(x.float(), self.lm_head.weight.float())
+            out = F.linear(x.float().to(dt), self.embed_tokens.weight.to(dt))
+        else:
+            out = F.linear(x.float(), self.lm_head.weight.float())
+        return out if self.logits_scaling == 1.0 else out / self.logits_scaling
 
     def last_logits(self, ids: torch.Tensor, mask: torch.Tensor, **kw) -> torch.Tensor:
         """Logits (B, V) at the last position only (rows left-padded): the

@@ -37,9 +37,10 @@ ops are called through this module's names (``short_conv``,
 ``moe_route``, ``moe_experts``) so that a harness can wrap them; the
 norms go through ``decoder.residual_norm``, so wrapping
 ``models/decoder.py``'s ``add_rms_norm`` reaches both models. ``hidden``,
-``last_logits`` and ``last_logits_packed`` take ``counts``, a (2,) int64
-device tensor that gains ``device_counts``: the routed assignments and
-the busiest expert's rows, summed over the MoE layers.
+``last_logits`` and ``last_logits_packed`` take ``counts``, a (3,) int64
+device tensor that gains ``device_counts``: the routed assignments, those
+on held experts (every expert is held here, so the two agree) and the
+busiest expert's rows, summed over the MoE layers.
 """
 
 from __future__ import annotations
@@ -146,7 +147,7 @@ class _Lfm2Context:
     attn: AttentionContext           # the attention layers'
     seg: torch.Tensor                # (B, L) int32: the conv's segments, −1 on padding
     live: torch.Tensor               # (B · L,) bool: the tokens the router routes
-    counts: Optional[torch.Tensor]   # (2,) int64, or None
+    counts: Optional[torch.Tensor]   # (3,) int64, or None
 
     @property
     def fused(self) -> bool:
@@ -234,7 +235,7 @@ class Lfm2MoeLayer(nn.Module):
 class Lfm2MoeLM(DecoderLM):
     """``DecoderLM``'s entry points over LFM2-MoE layers."""
 
-    device_counts = ("moe_assignments", "moe_busiest")
+    device_counts = ("moe_assignments", "moe_held", "moe_busiest")
 
     def __init__(self, cfg: Lfm2MoeConfig, device=None):
         super().__init__(cfg, (Lfm2MoeLayer(cfg, i, device)

@@ -198,11 +198,26 @@ def attention_context(cfg: Qwen3Config, mask: torch.Tensor) -> AttentionContext:
     # left-padding aware: positions count from the first live token
     positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
     if cfg.attn_impl == "einsum":
-        l = mask.shape[1]
-        causal = torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
-        bias = torch.where(causal[None, None] & mask[:, None, None, :], 0.0, MASK_BIAS)
-        return AttentionContext(positions, fused=False, bias=bias)
+        return AttentionContext(positions, fused=False, bias=causal_bias(mask))
     return _fused_context(cfg, positions, mask.to(torch.int32))
+
+
+def causal_bias(mask: torch.Tensor) -> torch.Tensor:
+    """(B, 1, L, L) f32 additive bias of the einsum path for left-padded
+    rows: a query sees the live keys at or before it."""
+    l = mask.shape[1]
+    causal = torch.ones(l, l, dtype=torch.bool, device=mask.device).tril()
+    return torch.where(causal[None, None] & mask[:, None, None, :], 0.0, MASK_BIAS)
+
+
+def packed_bias(seg: torch.Tensor) -> torch.Tensor:
+    """(B, 1, L, L) f32 additive bias of the einsum path for packed rows: a
+    key is seen by the queries of its own segment at or after it, padding
+    (segment −1) by no live query."""
+    l = seg.shape[1]
+    causal = torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
+    seen = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
+    return torch.where(seen[:, None], 0.0, MASK_BIAS)
 
 
 def packed_attention_context(cfg: Qwen3Config, positions: torch.Tensor,
@@ -210,11 +225,7 @@ def packed_attention_context(cfg: Qwen3Config, positions: torch.Tensor,
     """Several sequences a row: a key is seen by the queries of its own
     segment at or after it, padding (segment −1) by no live query."""
     if cfg.attn_impl == "einsum":
-        l = seg.shape[1]
-        causal = torch.ones(l, l, dtype=torch.bool, device=seg.device).tril()
-        seen = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
-        bias = torch.where(seen[:, None], 0.0, MASK_BIAS)
-        return AttentionContext(positions, fused=False, bias=bias)
+        return AttentionContext(positions, fused=False, bias=packed_bias(seg))
     return _fused_context(cfg, positions, seg)
 
 

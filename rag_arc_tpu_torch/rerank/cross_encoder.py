@@ -31,8 +31,9 @@ tokenization and the packing, with ``tokens``, the real prompt tokens,
 ``slots``, the token slots the forward runs, and ``rows``),
 ``rerank.forward`` (the chunks' uploads and launches) and
 ``rerank.readback``, each with ``pairs``. A scorer that names
-``device_counts`` (``Lfm2MoeLM``: ``moe_assignments``, ``moe_busiest``)
-sums them on the card during the forward; they come back in the
+``device_counts`` (``Lfm2MoeLM`` and ``GraniteHybridLM``:
+``moe_assignments``, ``moe_held``, ``moe_busiest``) sums them on the card
+during the forward; they come back in the
 readback's one copy and are set on the ``rerank.forward`` span's counts
 then, after it closed (``/stats`` reads them from the same dict).
 """

@@ -180,12 +180,12 @@ def test_expert_with_no_rows_and_padding_not_routed():
     gateup = torch.randn(e, 2 * inter, h, generator=g) * 0.3
     down = torch.randn(e, h, inter, generator=g) * 0.3
     live = torch.rand(t, generator=g) > 0.2
-    counts = torch.zeros(2, dtype=torch.int64)
+    counts = torch.zeros(3, dtype=torch.int64)
     r = moe_ops.moe_route(x, gate, bias, k, live=live, counts=counts)
     offs = r.offsets.tolist()
     assert offs[4] == offs[3] and offs[-1] == int(live.sum()) * k
     per = np.diff(offs)
-    assert counts.tolist() == [int(live.sum()) * k, int(per.max())]
+    assert counts.tolist() == [int(live.sum()) * k, int(live.sum()) * k, int(per.max())]
     got = moe_ops.moe_experts(x, r, gateup, down)
     # f32; every expert on every token against the permuted rows: sums of
     # outputs of ~1-10 in another order
@@ -385,7 +385,7 @@ def test_moe_kernels_match_plain(cuda, t, h, inter, e, k):
     dev = [a.to(cuda) for a in (x, gate, bias, gateup, down, live)]
     xb, gb, ub, db = (dev[0].bfloat16(), dev[1].bfloat16(), dev[3].bfloat16(),
                       dev[4].bfloat16())
-    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(3, dtype=torch.int64, device=cuda)
     r = moe_ops.moe_route(xb, gb, dev[2], k, live=dev[5], counts=counts)
     offs = r.offsets.cpu().tolist()
     assert offs[2] == offs[1] and offs[-1] == int(live.sum()) * k
@@ -400,7 +400,7 @@ def test_moe_kernels_match_plain(cuda, t, h, inter, e, k):
     # the same points; the tensor cores' f32 sums over 1,792-2,048 terms
     # differ in order from the CPU's, a few bf16 steps of the largest output
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0, atol=2e-2 * scale)
-    assert counts.cpu().tolist() == [offs[-1], int(np.diff(offs).max())]
+    assert counts.cpu().tolist() == [offs[-1], offs[-1], int(np.diff(offs).max())]
 
 
 @pytest.mark.gpu
@@ -436,7 +436,7 @@ def test_forward_on_the_card_matches_reference_without_host_sync(cuda):
     rows, _, last = pack_prompts(ids.numpy(), mask.numpy(), 256)
     r = torch.from_numpy(rows).to(cuda)
     last_d = torch.from_numpy(last).to(cuda)
-    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(3, dtype=torch.int64, device=cuda)
     with torch.no_grad():
         model.last_logits_packed(r[0], r[1], r[2], last_d, counts=counts)  # builds the kernels
         torch.cuda.synchronize()

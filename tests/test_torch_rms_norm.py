@@ -228,9 +228,9 @@ def test_every_norm_site_goes_through_qwen3s_wrappable_name(kind, attn_impl, cal
     model = _tiny(kind, attn_impl)
     seen = []
 
-    def counting(x, delta, weight, eps):
+    def counting(x, delta, weight, eps, scale):
         seen.append(delta is None)
-        return rn.add_rms_norm(x, delta, weight, eps)
+        return rn.add_rms_norm(x, delta, weight, eps, scale)
 
     monkeypatch.setattr(decoder, "add_rms_norm", counting)
     ids, mask = _left_padded((12, 5, 9))
